@@ -6,9 +6,8 @@ Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
 
 Methodology: N time steps run inside ONE device program
 (Simulation.multi_step, a lax.fori_loop over the full RK3 step), timed from
-dispatch to a forced scalar fetch of the result — robust to the async
-dispatch semantics of the runtime.  A 1-step run is timed the same way and
-subtracted to remove fixed dispatch/fetch overhead.
+dispatch to block_until_ready on the result, after a first call of the same
+program that compiles it.
 
 Metric: ns per grid cell per RK3 substep (one substep = momentum RHS + RK
 update + BC fills + FFT/tridiagonal Poisson solve + projection + SGS,
@@ -20,9 +19,9 @@ configuration, 0.25 ns/cell/substep (bandwidth model: ~45 full-field HBM
 passes per substep at ~1.55 TB/s effective).  vs_baseline > 1 means faster
 than that estimate; superseded by a measured number when one exists.
 
-Multi-chip: ``python bench.py --mesh 2x4 [--ng 1024x512x512]`` runs the same
-benchmark sharded over a ('gy','gx') device mesh — the BASELINE.json
-north-star configuration on a v5e-8.  Requires gy*gx attached devices.
+Multi-device: ``python bench.py --mesh 4x1 [--ng 1024x512x512]`` runs the
+same benchmark sharded over a ('gy','gx') device mesh.  Requires gy*gx
+attached devices.
 """
 import argparse
 import json
@@ -67,7 +66,7 @@ _DUCT_BCS = dict(
     cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
     cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')))
 # the reference cavity is fully enclosed (all-D); this matrix entry is the
-# spanwise-periodic (kernel-eligible) cavity class with the lid driving V
+# spanwise-periodic cavity class with the lid driving V
 _CAV_BCS = _DUCT_BCS
 
 
@@ -77,11 +76,11 @@ def _matrix_configs(ng):
     chan = dict(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
                 inivel='log', is_wallturb=True,
                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                dtype='float32', ptransform='mat')
+                dtype='float32')
     return {
         'triperiodic_dns': dict(
             ng=ng, l=(2 * np.pi,) * 3, gtype=0, gr=0.0, visci=1600.0,
-            inivel='tgv', sgstype='none', dtype='float32', ptransform='mat',
+            inivel='tgv', sgstype='none', dtype='float32',
             cbcvel=((('P',) * 3,) * 3,) * 2,
             cbcpre=(('P',) * 3,) * 2, cbcsgs=(('P',) * 3,) * 2),
         # BASELINE.json #2 is "wall-normal tridiag Helmholtz + implicit CN
@@ -97,13 +96,13 @@ def _matrix_configs(ng):
             ng=ng, l=(4 * np.pi, 2.0, 2.0), gtype=1, gr=1.0, visci=10_000.0,
             inivel='duc', is_wallturb=True, is_forced=(True, False, False),
             velf=(1.0, 0.0, 0.0), sgstype='dsmag', dsmag_avg='duct',
-            dtype='float32', ptransform='mat', **_DUCT_BCS),
+            dtype='float32', **_DUCT_BCS),
         # inivel 'tgv' (not 'zer'): a dsmag step from an identically-zero
         # field is 0/0; any smooth field times the same code path
         'cavity_les_dsmag': dict(
             ng=ng, l=(1.0, 1.0, 1.0), gtype=1, gr=0.0, visci=5_000.0,
             inivel='tgv', sgstype='dsmag', dsmag_avg='cavity',
-            dtype='float32', ptransform='mat',
+            dtype='float32',
             # spanwise-periodic cavity: the z-top lid drives V (the
             # recirculating (y,z) cavity with periodic span; a lid along
             # the periodic x would decouple from the pressure entirely)
@@ -119,42 +118,31 @@ def _matrix_configs(ng):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--mesh', default=None,
-                    help="device mesh as GYxGX (e.g. 2x4); default single-chip")
+                    help="device mesh as GYxGX (e.g. 4x1); default one device")
     ap.add_argument('--ng', default=None,
                     help="grid as NXxNYxNZ; default 512x256x256 "
-                         "(1024x512x512 with --mesh 2x4)")
+                         "(1024x512x512 with --mesh)")
     ap.add_argument('--nsteps', type=int, default=NSTEPS)
     ap.add_argument('--matrix', action='store_true',
-                    help="run the five BASELINE.json configs and report "
-                         "ns/cell/substep + Poisson fraction per config "
-                         "(writes BENCH_MATRIX.json)")
+                    help="run the six matrix configs and report "
+                         "ns/cell/substep + Poisson fraction per config")
     ap.add_argument('--only', default=None,
-                    help="with --matrix: comma-separated config names to "
-                         "run (merges results into BENCH_MATRIX.json)")
+                    help="with --matrix: comma-separated config names to run")
     ap.add_argument('--no-solve-ablation', action='store_true',
-                    help="with --matrix: skip the solve-ablated run "
-                         "(faster A/B; keeps the old poisson_fraction)")
+                    help="with --matrix: skip the solve-ablated run (no "
+                         "Poisson fraction)")
     args = ap.parse_args(argv)
-    if args.nsteps < 2:
-        ap.error('--nsteps must be >= 2 (a 1-step run is the overhead probe)')
 
     import jax
-    import jax.numpy as jnp
-
-    # persistent executable cache: the Pallas mega-kernels take ~2 min of
-    # Mosaic compile per shape on first use; cached across runs.  TPU only:
-    # XLA:CPU AOT cache entries are machine-feature-pinned and a feature
-    # mismatch silently yields corrupt executables (observed NaNs)
-    if jax.default_backend() == 'tpu':
-        jax.config.update('jax_compilation_cache_dir',
-                          os.path.expanduser('~/.jax_cache'))
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cales_tpu.config import Config
     from cales_tpu.grid import make_grid_from_config
     from cales_tpu.initflow import initflow
+    from cales_tpu.runtime import enable_compile_cache
     from cales_tpu.timeloop import Simulation
 
+    enable_compile_cache()
     mesh = None
     if args.mesh:
         from cales_tpu.parallel.mesh import make_mesh
@@ -164,14 +152,13 @@ def main(argv=None):
     if args.ng:
         ng = tuple(int(v) for v in args.ng.split('x'))
     elif mesh is not None:
-        ng = (1024, 512, 512)  # BASELINE.json north star on 8 chips
+        ng = (1024, 512, 512)  # the sharded class: 8x the one-device grid
 
     dt = 1e-4
     nsteps = args.nsteps
 
     def measure(cfg, ablate_solve=False):
-        """ns/cell/RK3-substep for one Config (fetch-synced timing, fixed
-        dispatch overhead subtracted via a 1-step run)."""
+        """ns/cell/RK3-substep for one Config."""
         grid = make_grid_from_config(cfg)
         sim = Simulation(cfg, grid, mesh=mesh)
         sim.ablate_solve = ablate_solve
@@ -189,100 +176,55 @@ def main(argv=None):
             # multi_step donates its input state; use the returned state
             t0 = time.perf_counter()
             out = sim.multi_step(st, dt, n)
-            # force full completion through the runtime (dispatch is async
-            # and block_until_ready is unreliable here; see CLAUDE.md)
-            chk = float(jnp.sum(out.u[0, 0, :8]))
-            el = time.perf_counter() - t0
-            assert np.isfinite(chk)
-            return out, el
+            jax.block_until_ready(out.u)
+            return out, time.perf_counter() - t0
 
-        # compile both step counts + warm the pipeline.  m stays 1: the
-        # 1-step program is long-cached, and the flaky remote compile
-        # helper (round-5 notes) must not be handed a fresh program here
-        m = 1
-        state, _ = timed_advance(state, m)
-        state, _ = timed_advance(state, nsteps)
-        # measure: per_step = (tN - tM) / (N - M) with the M-step probe
-        # averaged over two runs BRACKETING the N-step run — the two
-        # timings share the dispatch/fetch structure (so fixed overhead
-        # cancels exactly), the symmetric bracket cancels queue drift,
-        # and no single stalled probe can fake a speedup (observed: a
-        # 0.0976 'measurement' of the 0.23 headline from one stalled
-        # 1-step calibration)
-        state, tMa = timed_advance(state, m)
-        state, tN = timed_advance(state, nsteps)
-        state, tMb = timed_advance(state, m)
-        per_step = max((tN - 0.5 * (tMa + tMb)) / (nsteps - m), 1e-9)
+        state, _ = timed_advance(state, nsteps)     # compiles
+        state, t_n = timed_advance(state, nsteps)
+        assert np.isfinite(float(state.u[0, 0, 0]))
         ncell = cfg.ng[0] * cfg.ng[1] * cfg.ng[2]
-        return per_step / 3.0 / ncell * 1e9, sim.exec_path()
+        return t_n / nsteps / 3.0 / ncell * 1e9, sim.exec_path()
 
     tag = f'{ng[0]}x{ng[1]}x{ng[2]} f32'
     if mesh is not None:
         tag += f', mesh {args.mesh}'
 
     if args.matrix:
-        # the declared BASELINE.json metric: per-config ns/cell/RK3-substep
-        # + Poisson-solve fraction (measured by ablating the solve)
-        mpath = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             'BENCH_MATRIX.json')
-        # the file holds one section per grid tag ('grids'); a bare
-        # legacy payload ({'grid': tag, 'configs': ...}) is absorbed as
-        # that tag's section
-        sections = {}
-        if os.path.exists(mpath):
-            with open(mpath) as f:
-                old = json.load(f)
-            if 'grids' in old:
-                sections = old['grids']
-            elif 'grid' in old:
-                sections[old['grid']] = {'nsteps': old.get('nsteps'),
-                                         'configs': old.get('configs', {})}
-        # start from the tag's existing rows: --only merges, and a full
-        # --no-solve-ablation pass keeps the previously measured
-        # poisson fractions
-        results = dict(sections.get(tag, {}).get('configs', {}))
+        # per-config ns/cell/RK3-substep + Poisson-solve fraction (measured
+        # by ablating the solve)
+        results = {}
         only = set(args.only.split(',')) if args.only else None
         for name, kw in _matrix_configs(ng).items():
             if only is not None and name not in only:
                 continue
             cfg = Config(**kw)
             ns_full, path = measure(cfg)
-            if args.no_solve_ablation:
-                frac = results.get(name, {}).get('poisson_fraction', -1.0)
-            else:
+            row = {'ns_per_cell_substep': ns_full,
+                   'vs_baseline': _CONFIG_BASELINES[name] / ns_full,
+                   'baseline_ns': _CONFIG_BASELINES[name],
+                   'exec_path': path}
+            if not args.no_solve_ablation:
                 ns_nosolve, _ = measure(cfg, ablate_solve=True)
-                frac = max(0.0, 1.0 - ns_nosolve / ns_full)
-            results[name] = {
-                'ns_per_cell_substep': round(ns_full, 4),
-                'poisson_fraction': round(frac, 3),
-                'vs_baseline': round(
-                    _CONFIG_BASELINES[name] / ns_full, 3),
-                'baseline_ns': _CONFIG_BASELINES[name],
-                'exec_path': path,
-            }
-            print(f'# {name}: {ns_full:.4f} ns/cell/substep, '
-                  f'poisson {frac:.1%}, {path}', flush=True)
-        sections[tag] = {'nsteps': nsteps, 'configs': results}
-        payload = {'grids': sections}
-        with open(mpath, 'w') as f:
-            json.dump(payload, f, indent=1)
+                row['poisson_fraction'] = max(0.0, 1.0 - ns_nosolve / ns_full)
+            results[name] = row
+            print(f'# {name}: {ns_full:.4f} ns/cell/substep, {path}',
+                  flush=True)
         print(json.dumps({'grid': tag, 'nsteps': nsteps,
                           'configs': results}))
         return
 
-    # headline config (BASELINE config #3 class; ptransform='mat' == the TPU
-    # 'auto' resolution, set explicitly so CPU smoke runs of the sharded
-    # path skip an XLA-CPU rfft+GSPMD bug)
+    # headline config (BASELINE config #3 class)
     cfg = Config(ng=ng, l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=1.0,
                  visci=20_000.0, inivel='log', is_wallturb=True,
                  is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='smag', dtype='float32', ptransform='mat')
-    ns_per_cell_substep, _path = measure(cfg)
+                 sgstype='smag', dtype='float32')
+    ns_per_cell_substep, path = measure(cfg)
     out = {
         "metric": f"channel LES (smag) ns/cell/RK3-substep, {tag}",
-        "value": round(ns_per_cell_substep, 4),
+        "value": ns_per_cell_substep,
         "unit": "ns/cell/substep",
-        "vs_baseline": round(BASELINE_NS_PER_CELL_SUBSTEP / ns_per_cell_substep, 3),
+        "vs_baseline": BASELINE_NS_PER_CELL_SUBSTEP / ns_per_cell_substep,
+        "exec_path": path,
     }
     print(json.dumps(out))
 

@@ -1,5 +1,5 @@
-"""cales_tpu — a TPU-native (JAX/XLA/Pallas) incompressible DNS/LES framework
-with the capabilities of CaNS-World/CaLES (reference at /root/reference)."""
+"""cales_tpu — a JAX/XLA incompressible DNS/LES framework with the
+capabilities of the CaNS-World/CaLES reference."""
 
 __version__ = "0.1.0"
 

@@ -11,7 +11,7 @@ import sys
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog='cales_tpu',
-        description='TPU-native incompressible DNS/LES solver (CaLES-class)')
+        description='JAX incompressible DNS/LES solver (CaLES-class)')
     ap.add_argument('input', nargs='?', default='input.nml',
                     help='namelist input file (reference-compatible)')
     ap.add_argument('--datadir', default='data', help='output directory')
@@ -22,7 +22,7 @@ def main(argv=None):
     ap.add_argument('--cpu', action='store_true',
                     help='force the CPU backend')
     ap.add_argument('--mesh', default=None,
-                    help='device mesh as GYxGX, e.g. 2x4')
+                    help='device mesh as GYxGX, e.g. 4x1')
     args = ap.parse_args(argv)
 
     import jax
@@ -31,16 +31,17 @@ def main(argv=None):
 
     from .nml import config_from_nml
     from .driver import run
+    from .runtime import enable_compile_cache
 
     overrides = {}
     if args.dtype:
         overrides['dtype'] = args.dtype
     cfg = config_from_nml(args.input, **overrides)
-    if args.cpu and cfg.dtype == 'float64':
-        # x64 must follow the EFFECTIVE precision: enabling it for a
-        # float32 case promotes in-trace constants to f64 and the step's
-        # fori_loop carry dtypes mismatch
+    if cfg.dtype == 'float64':
+        # the host-side logs and checkpoints handle the float64 state
+        # (the Simulation itself traces in its own precision either way)
         jax.config.update('jax_enable_x64', True)
+    enable_compile_cache()
 
     mesh = None
     if args.mesh:

@@ -1,4 +1,4 @@
-"""Runtime configuration for the TPU-native CaLES rebuild.
+"""Runtime configuration for the JAX CaLES rebuild.
 
 Mirrors the reference's ``input.nml`` namelists ``&dns``/``&les``
 (``/root/reference/src/param.f90:95-120``) plus every compile-time ``#ifdef``
@@ -12,9 +12,9 @@ reference (``param.f90:58-63``).
 Index conventions used throughout this package:
   * logical sizes/BCs are ordered (x, y, z) like the reference;
   * **array layout is (z, y, x)** (C order).  This matches the Fortran
-    column-major (x fastest) memory layout bit-for-bit while putting x on the
-    TPU lane dimension (batched FFTs along the last axis) and z on the leading
-    axis (tridiagonal sweeps scan contiguous (ny, nx) tiles).
+    column-major (x fastest) memory layout bit-for-bit while keeping x
+    contiguous (batched FFTs along the last axis, coalesced loads) and z on
+    the leading axis (tridiagonal sweeps walk contiguous (ny, nx) planes).
 """
 from __future__ import annotations
 
@@ -125,19 +125,13 @@ class Config:
     # leaves this to post-processing; see io/averaging.py)
     stats_avg: bool = False
     dtype: str = 'float32'                 # _SINGLE_PRECISION analogue ('float32'|'float64')
-    zsolver: str = 'eig'                   # z direct solver: 'eig' (MXU matmul
-                                           # diagonalization) | 'thomas' (scan)
-    # periodic-direction transform implementation: 'fft' (jnp.fft.rfft),
-    # 'mat' (real half-complex DFT operator matrix on the MXU), or 'auto'
-    # (mat on TPU for n <= 4096, where XLA's FFT lowering is copy-bound;
-    # fft elsewhere)
+    # z direct solver: 'eig' (dense eigenbasis matmuls), 'thomas' (batched
+    # tridiagonal sweep), or 'auto' (poisson.resolve_zsolver: thomas on one
+    # GPU, eig elsewhere)
+    zsolver: str = 'auto'
+    # periodic-direction transform: 'fft' (jnp.fft.rfft, cuFFT on the GPU),
+    # 'mat' (real half-complex DFT operator matrix), or 'auto' (= 'fft')
     ptransform: str = 'auto'
-    # Pallas mega-kernels for the hot stencils (momentum+RK, sgs, correc)
-    # when eligible (TPU f32; all wall topologies incl. x/y walls, wall
-    # models, implicit diffusion, scalar, 1D/2D meshes — see
-    # Simulation.exec_path() for the live gate report); the few remaining
-    # ineligible corners fall back to the XLA expression path (PARITY.md)
-    use_pallas: bool = True
 
     # --- passive scalar (reference ships scal.f90/rk_scal unwired;
     #     here it is an opt-in part of the time loop) ---
@@ -259,5 +253,7 @@ def validate(cfg: Config) -> None:
         raise ValueError(f'unknown SGS model {cfg.sgstype!r}')
     if cfg.dsmag_avg not in ('dit', 'channel', 'duct', 'cavity'):
         raise ValueError(f'unknown dsmag averaging {cfg.dsmag_avg!r}')
+    if cfg.zsolver not in ('auto', 'eig', 'thomas'):
+        raise ValueError(f'unknown z solver {cfg.zsolver!r}')
     if cfg.ptransform not in ('auto', 'fft', 'mat'):
         raise ValueError(f'unknown periodic transform {cfg.ptransform!r}')

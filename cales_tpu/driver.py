@@ -57,8 +57,7 @@ def run(cfg: Config, datadir='data', mesh=None, verbose=True,
                          f'available; running single-device')
     sim = Simulation(cfg, grid, mesh=mesh)
     # the reference prints its decomposition/backends at startup
-    # (initmpi.f90:104-139); this line prevents silently benchmarking a
-    # degraded execution path
+    # (initmpi.f90:104-139): device, transforms, z solver, precision
     log(verbose, f'*** Execution path: {sim.exec_path()} ***')
     out.write_grid_files(datadir, cfg, grid)
 

@@ -1,6 +1,6 @@
 """Per-shard checkpoint I/O for sharded arrays.
 
-TPU-native counterpart of the reference's MPI-IO collective subarray writes
+JAX counterpart of the reference's MPI-IO collective subarray writes
 (io_field with MPI_TYPE_CREATE_SUBARRAY, load.f90:155-187): every process
 writes/reads only its addressable shards of a sharded ``jax.Array``, placed
 at the right (strided) offsets of the SAME ``fld.bin``-format file via a

@@ -102,8 +102,8 @@ def lid_driven_cavity(ng=(64, 64, 64), visci=1000., ulid=1.0, **kw):
 def spanwise_cavity(ng=(16, 64, 64), visci=1000., vlid=1.0, **kw):
     """Spanwise-periodic lid-driven cavity: x periodic, walls in y and z,
     z-top lid moving in Y — the recirculating (y, z) cavity flow with a
-    periodic span (the kernel-eligible cavity class used by bench.py's
-    dsmag matrix entry; at laminar Re with a thin span it reproduces the
+    periodic span (the cavity class of bench.py's dsmag matrix entry; at
+    laminar Re with a thin span it reproduces the
     2D Ghia cavity exactly — validation/cavity.py)."""
     v = (('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D'))
     bcv = [[[0.] * 3 for _ in range(3)] for _ in range(2)]

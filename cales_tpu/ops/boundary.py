@@ -1,23 +1,21 @@
 """Functional ghost-cell layer.
 
-TPU-native counterpart of the reference halo/BC machinery
+JAX counterpart of the reference halo/BC machinery
 (/root/reference/src/bound.f90): fields are stored interior-only with shape
 (nz, ny, nx); each operation that needs neighbors consumes a *padded* view
 (nz+2, ny+2, nx+2) materialized here according to the BC semantics of
 ``set_bc`` (bound.f90:202-399).
 
-Implementation note (TPU): each padded field is assembled with one
+Implementation note: each padded field is assembled with one
 ``concatenate`` per axis from the interior and functionally-computed ghost
-faces; concatenates fuse into consumers on TPU, unlike chains of
-``.at[face].set`` updates which lower to full-array dynamic-update-slices
-(measured at 36% of the whole RK substep).  Axes are processed in x, y, z
-order with each ghost plane spanning the already-attached earlier-axis
-ghosts, reproducing the corner semantics of the reference's sequential
-halo+set_bc sweep.  Periodic wraps become collective-permutes when sharded
-(the updthalo/cudecompUpdateHalos analogue, bound.f90:619-723).
-N.B. trace-time constants must stay scalar/1D (see CLAUDE.md): inlined
-multi-MB literals — not concatenates — were the original TPU compile-time
-blowup.
+faces; concatenates fuse into their consumers, unlike chains of
+``.at[face].set`` updates which lower to full-array dynamic-update-slices.
+Axes are processed in x, y, z order with each ghost plane spanning the
+already-attached earlier-axis ghosts, reproducing the corner semantics of
+the reference's sequential halo+set_bc sweep.  Periodic wraps become
+collective-permutes when sharded (the updthalo/cudecompUpdateHalos analogue,
+bound.f90:619-723).  N.B. trace-time constants must stay scalar/1D: inlined
+multi-MB literals blow up compile time.
 
 Staggered conventions (padded python index p == Fortran index p of the
 reference's 0:n+1 arrays):
@@ -48,19 +46,19 @@ def bc_plane_shapes(ng):
 def make_bc_values(ng, vals, dtype):
     """Per-face BC values from namelist scalars (initbc, bound.f90:764-795).
 
-    Scalars are kept as python scalars (broadcast in-kernel): materializing
+    Scalars are kept as python scalars (broadcast at use): materializing
     them as full planes at trace time would inline megabytes of literal
-    constants into the HLO and blow up TPU compile time.  The wall model
+    constants into the HLO and blow up compile time.  The wall model
     promotes the faces it owns to full traced planes
     (wallmodel.update_wallmodel_bcs).
 
     A 2-D array entry (round 5) is a USER-SUPPLIED plane-valued BC — an
     inflow profile, a nonuniform moving lid, wall transpiration (the
     reference holds every BC as a plane internally, bound.f90:764-795) —
-    kept as a padded (t1+2, t2+2) device plane; every downstream recipe
-    (_bc_row/_corner_rows/_corner_cols/ensure_plane) already crops or
-    slices planes.  One static plane is ~0.5 MB at the 512-class — far
-    below the inlined-literal compile hazard (full 3-D fields)."""
+    kept as a padded (t1+2, t2+2) device plane; the ghost fills crop it
+    (crop_plane, ensure_plane).  One static plane is ~0.5 MB at the
+    512-class — far below the inlined-literal compile hazard (full 3-D
+    fields)."""
     shapes = bc_plane_shapes(ng)
     axes = ('x', 'y', 'z')
     out = []
@@ -189,357 +187,6 @@ def pad_scalar(p, cbc, bcvals, dl, dzc):
     for key, idir in (('x', 0), ('y', 1), ('z', 2)):
         q = _set_centered(q, AX[key], cbc[idir], bcvals[idir], drs[key])
     return q
-
-
-def zpad_scalar(p, cbc_z, bcvals_z, dzc):
-    """z-ghost-only fill for a cell-centered scalar: (nz, ny, nx) ->
-    (nz+2, ny, nx).  The Pallas kernel input format (x/y periodic closed
-    in-kernel; see ops/pallas_kernels.py)."""
-    nz = p.shape[0]
-    dr = (float(dzc[0]), float(dzc[nz]))
-    return _set_centered(p, 0, cbc_z, bcvals_z, dr)
-
-
-def zpad_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dzc, dzf,
-                  vlo=None, is_correc=False):
-    """z-ghost-only fill for the staggered velocity: (nz, ny, nx) ->
-    (nz+2, ny, nx) triple.  Same z semantics as pad_velocity (u, v
-    centered in z; w face-staggered with the vlo/is_correc retention);
-    x/y ghosts are NOT attached (Pallas kernels close them as periodic
-    wraps — callers must gate on periodic x/y)."""
-    nz = u.shape[0]
-    dr_par = (float(dzc[0]), float(dzc[nz]))
-    dr_nrm = (float(dzf[0]), float(dzf[nz]))
-    lts = lambda ivel: (cbcvel[0][2][ivel], cbcvel[1][2][ivel])
-    uq = _set_centered(u, 0, lts(0), bcu[2], dr_par)
-    vq = _set_centered(v, 0, lts(1), bcv[2], dr_par)
-    lw = lts(2)
-    keep = is_correc and lw[0] != 'P' and vlo is not None
-    wq = _set_face(w, 0, lw, bcw[2], dr_nrm,
-                   lo_keep=vlo[2] if keep else None, keep=keep)
-    return uq, vq, wq
-
-
-def _zedge_centered(q, letters, bcvals, dr):
-    """(3, ny, nx) z-edge stack [ghost_lo, padded-row-nz, ghost_hi] for a
-    z-centered variable; padded row nz is the unmodified interior last row."""
-    first, last = q[0], q[-1]
-    if letters[0] == 'P':
-        lo, hi = last, first
-    else:
-        b0 = _bc_plane(bcvals[0], q, 0, q.dtype)
-        b1 = _bc_plane(bcvals[1], q, 0, q.dtype)
-        lo = 2.0 * b0 - first if letters[0] == 'D' else -dr[0] * b0 + first
-        hi = 2.0 * b1 - last if letters[1] == 'D' else dr[1] * b1 + last
-    return jnp.stack([lo, last, hi])
-
-
-def _zedge_face(q, letters, bcvals, dr, lo_keep=None, keep=False):
-    """z-edge stack for the z-face-staggered component (w): the padded row
-    nz entry can be REWRITTEN by the prediction fill (set_bc 'D'/'N',
-    bound.f90:292-293, 365-366), so it travels in the stack instead of
-    mutating the interior array."""
-    first, second_last, last = q[0], q[-2], q[-1]
-    if letters[0] == 'P':
-        return jnp.stack([last, last, first])
-    if keep:
-        hi = second_last if letters[1] == 'D' else last
-        lo = crop_plane(lo_keep, q.shape, 0).astype(q.dtype)
-        return jnp.stack([lo, last, hi])
-    b0 = _bc_plane(bcvals[0], q, 0, q.dtype)
-    b1 = _bc_plane(bcvals[1], q, 0, q.dtype)
-    lo = b0 if letters[0] == 'D' else -dr[0] * b0 + first
-    if letters[1] == 'D':
-        newlast, hi = b1, second_last
-    else:
-        newlast, hi = dr[1] * b1 + second_last, last
-    return jnp.stack([lo, newlast, hi])
-
-
-def zedge_scalar(p, cbc_z, bcvals_z, dzc):
-    """(3, ny, nx) z-edge stack of a cell-centered scalar — the Pallas
-    kernel-input replacement for a full zpad copy: kernels assemble the z
-    window from the interior array plus these rows (ops/pallas_kernels.py)."""
-    nz = p.shape[0]
-    dr = (float(dzc[0]), float(dzc[nz]))
-    return _zedge_centered(p, cbc_z, bcvals_z, dr)
-
-
-def zedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dzc, dzf,
-                   vlo=None, is_correc=False):
-    """z-edge stacks (3, ny, nx) for (u, v, w): same z semantics as
-    zpad_velocity but without materializing padded fields.  Rows:
-    [padded row 0, padded row nz (possibly rewritten wall face for w),
-    padded row nz+1]."""
-    nz = u.shape[0]
-    dr_par = (float(dzc[0]), float(dzc[nz]))
-    dr_nrm = (float(dzf[0]), float(dzf[nz]))
-    lts = lambda ivel: (cbcvel[0][2][ivel], cbcvel[1][2][ivel])
-    ue = _zedge_centered(u, lts(0), bcu[2], dr_par)
-    ve = _zedge_centered(v, lts(1), bcv[2], dr_par)
-    lw = lts(2)
-    keep = is_correc and lw[0] != 'P' and vlo is not None
-    we = _zedge_face(w, lw, bcw[2], dr_nrm,
-                     lo_keep=vlo[2] if keep else None, keep=keep)
-    return ue, ve, we
-
-
-def _bc_row(val, nz, nx, dtype):
-    """BC value as an interior (nz, nx) y-face row (scalar broadcast; full
-    padded planes are cropped)."""
-    if hasattr(val, 'ndim') and getattr(val, 'ndim', 0) == 2:
-        return val[1:-1, 1:-1].astype(dtype)
-    return jnp.full((nz, nx), val, dtype=dtype)
-
-
-def _yrows_centered(q, letters, bcvals, dr):
-    """(nz, 3, nx) y-row stack [padded y 0, padded y ny+1, padded y ny] for
-    a y-centered field — the y-wall analogue of _zedge_centered, consumed by
-    the Pallas kernels' in-window ghost-row fixes (set_bc semantics,
-    bound.f90:232-352 along y)."""
-    nz, _, nx = q.shape
-    first, last = q[:, 0], q[:, -1]
-    if letters[0] == 'P':
-        lo, hi = last, first
-    else:
-        b0 = _bc_row(bcvals[0], nz, nx, q.dtype)
-        b1 = _bc_row(bcvals[1], nz, nx, q.dtype)
-        lo = 2.0 * b0 - first if letters[0] == 'D' else -dr[0] * b0 + first
-        hi = 2.0 * b1 - last if letters[1] == 'D' else dr[1] * b1 + last
-    return jnp.stack([lo, hi, last], axis=1)
-
-
-def _yrows_face(q, letters, bcvals, dr, lo_keep=None, keep=False):
-    """y-row stack for the y-face-staggered component (v): rows
-    [padded y 0, padded y ny+1, padded y ny (the set_bc rewrite slot,
-    bound.f90:292-293/365-366)]."""
-    nz, _, nx = q.shape
-    first, second_last, last = q[:, 0], q[:, -2], q[:, -1]
-    if letters[0] == 'P':
-        return jnp.stack([last, first, last], axis=1)
-    if keep:
-        hi = second_last if letters[1] == 'D' else last
-        lo = lo_keep[1:-1, 1:-1].astype(q.dtype)
-        return jnp.stack([lo, hi, last], axis=1)
-    b0 = _bc_row(bcvals[0], nz, nx, q.dtype)
-    b1 = _bc_row(bcvals[1], nz, nx, q.dtype)
-    lo = b0 if letters[0] == 'D' else -dr[0] * b0 + first
-    if letters[1] == 'D':
-        newlast, hi = b1, second_last
-    else:
-        newlast, hi = dr[1] * b1 + second_last, last
-    return jnp.stack([lo, hi, newlast], axis=1)
-
-
-def _corner_rows(val, dtype):
-    """z-direction BC value at the y-row-stack row positions
-    [padded y 0, padded y ny+1, padded y ny]: scalars pass through;
-    a padded (ny+2, nx+2) plane (wall-model Neumann values) contributes
-    its matching rows, shape (3, nx), broadcasting against the (3, nx)
-    y-row planes of _zedge_of_yrows."""
-    if hasattr(val, 'ndim') and getattr(val, 'ndim', 0) == 2:
-        return jnp.stack([val[0], val[-1], val[-2]])[:, 1:-1].astype(dtype)
-    return val
-
-
-def _bfill(b, like):
-    """Dirichlet corner row: scalar or (3, nx) row broadcast to (3, nx)."""
-    return jnp.broadcast_to(jnp.asarray(b, like.dtype), like.shape)
-
-
-def _zedge_of_yrows(rows, letters, bcvals, dr, face=False,
-                    vlo_plane=None, keep=False):
-    """z-edge stack (3, 3, nx) of a (nz, 3, nx) y-row stack — the corner
-    values of the reference's sequential x->y->z fill: the z formula applied
-    to the y-ghost rows.  BC values are scalars or padded (ny+2, nx+2)
-    planes (wall-model Neumann values; their rows at the y-ghost positions
-    are what the sequential fill reads there)."""
-    first, second_last, last = rows[0], rows[-2], rows[-1]
-    b0 = _corner_rows(bcvals[0], rows.dtype)
-    b1 = _corner_rows(bcvals[1], rows.dtype)
-    if not face:
-        if letters[0] == 'P':
-            lo, hi = last, first
-        else:
-            lo = 2.0 * b0 - first if letters[0] == 'D' else -dr[0] * b0 + first
-            hi = 2.0 * b1 - last if letters[1] == 'D' else dr[1] * b1 + last
-        return jnp.stack([lo, last, hi])
-    if letters[0] == 'P':
-        return jnp.stack([last, last, first])
-    if keep:
-        # w corners at the retained lower wall face: the vlo plane's y-ghost
-        # entries (padded plane rows [0, ny+1, ny] == our y-row order)
-        lo = jnp.stack([vlo_plane[0, 1:-1], vlo_plane[-1, 1:-1],
-                        vlo_plane[-2, 1:-1]]).astype(rows.dtype)
-        hi = second_last if letters[1] == 'D' else last
-        return jnp.stack([lo, last, hi])
-    lo = _bfill(b0, first) if letters[0] == 'D' else -dr[0] * b0 + first
-    if letters[1] == 'D':
-        newlast, hi = _bfill(b1, first), second_last
-    else:
-        newlast, hi = dr[1] * b1 + second_last, last
-    return jnp.stack([lo, newlast, hi])
-
-
-def yedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,
-                   vlo=None, is_correc=False):
-    """y-row stacks (nz, 3, nx) for (u, v, w) + their z-edge corner stacks
-    (3, 3, nx) — the y-wall kernel-input protocol (rows [padded y 0,
-    padded y ny+1, padded y ny]).  Same semantics as pad_velocity's y and z
-    passes; BC values may be scalars or padded planes (wall-model Neumann
-    values on y/z-wall-modeled faces, duct WMLES class)."""
-    nz = u.shape[0]
-    dr_y_par = (dl[1], dl[1])
-    dr_z_par = (float(dzc[0]), float(dzc[nz]))
-    dr_z_nrm = (float(dzf[0]), float(dzf[nz]))
-    ylts = lambda ivel: (cbcvel[0][1][ivel], cbcvel[1][1][ivel])
-    zlts = lambda ivel: (cbcvel[0][2][ivel], cbcvel[1][2][ivel])
-    keep_v = is_correc and ylts(1)[0] != 'P' and vlo is not None
-    yu = _yrows_centered(u, ylts(0), bcu[1], dr_y_par)
-    yv = _yrows_face(v, ylts(1), bcv[1], dr_y_par,
-                     lo_keep=vlo[1] if keep_v else None, keep=keep_v)
-    yw = _yrows_centered(w, ylts(2), bcw[1], dr_y_par)
-    keep_w = is_correc and zlts(2)[0] != 'P' and vlo is not None
-    zyu = _zedge_of_yrows(yu, zlts(0), bcu[2], dr_z_par)
-    zyv = _zedge_of_yrows(yv, zlts(1), bcv[2], dr_z_par)
-    zyw = _zedge_of_yrows(yw, zlts(2), bcw[2], dr_z_nrm, face=True,
-                          vlo_plane=vlo[2] if keep_w else None, keep=keep_w)
-    return (yu, yv, yw), (zyu, zyv, zyw)
-
-
-def yedge_scalar(p, cbc, bcvals, dl, dzc):
-    """y-row stack + z-edge corner stack for a cell-centered scalar
-    (boundp y/z semantics)."""
-    nz = p.shape[0]
-    yp = _yrows_centered(p, cbc[1], bcvals[1], (dl[1], dl[1]))
-    zyp = _zedge_of_yrows(yp, cbc[2], bcvals[2],
-                          (float(dzc[0]), float(dzc[nz])))
-    return yp, zyp
-
-
-def _xcols_centered(q, letters, bcvals, dr):
-    """(nz, ny, 3) x-ghost-column stack [padded x 0, padded x nx+1,
-    padded x nx] for an x-centered field — the x-wall analogue of
-    _yrows_centered, consumed by the kernels' xe edge-lane roll fixes
-    (set_bc semantics, bound.f90:232-352 along x)."""
-    nz, ny, _ = q.shape
-    first, last = q[:, :, 0], q[:, :, -1]
-    if letters[0] == 'P':
-        lo, hi = last, first
-    else:
-        b0 = _bc_row(bcvals[0], nz, ny, q.dtype)
-        b1 = _bc_row(bcvals[1], nz, ny, q.dtype)
-        lo = 2.0 * b0 - first if letters[0] == 'D' else -dr[0] * b0 + first
-        hi = 2.0 * b1 - last if letters[1] == 'D' else dr[1] * b1 + last
-    return jnp.stack([lo, hi, last], axis=2)
-
-
-def _xcols_face(q, letters, bcvals, dr, lo_keep=None, keep=False):
-    """x-ghost-column stack for the x-face-staggered component (u): cols
-    [padded x 0, padded x nx+1, padded x nx (the set_bc rewrite slot)]."""
-    nz, ny, _ = q.shape
-    first, second_last, last = q[:, :, 0], q[:, :, -2], q[:, :, -1]
-    if letters[0] == 'P':
-        return jnp.stack([last, first, last], axis=2)
-    if keep:
-        hi = second_last if letters[1] == 'D' else last
-        lo = lo_keep[1:-1, 1:-1].astype(q.dtype)
-        return jnp.stack([lo, hi, last], axis=2)
-    b0 = _bc_row(bcvals[0], nz, ny, q.dtype)
-    b1 = _bc_row(bcvals[1], nz, ny, q.dtype)
-    lo = b0 if letters[0] == 'D' else -dr[0] * b0 + first
-    if letters[1] == 'D':
-        newlast, hi = b1, second_last
-    else:
-        newlast, hi = dr[1] * b1 + second_last, last
-    return jnp.stack([lo, hi, newlast], axis=2)
-
-
-def _corner_cols(val, dtype):
-    """z-direction BC value at the x-column-stack column positions
-    [padded x 0, padded x nx+1, padded x nx]: scalars pass through;
-    a padded (ny+2, nx+2) plane (wall-model Neumann values) contributes
-    its matching columns, shape (ny, 3), broadcasting against the (ny, 3)
-    x-column planes of _zedge_of_xcols — the x analogue of _corner_rows
-    (x-walled + z-wall-model kernel path, round 5)."""
-    if hasattr(val, 'ndim') and getattr(val, 'ndim', 0) == 2:
-        return jnp.stack([val[:, 0], val[:, -1], val[:, -2]],
-                         axis=1)[1:-1].astype(dtype)
-    return val
-
-
-def _zedge_of_xcols(cols, letters, bcvals, dr, face=False,
-                    vlo_plane=None, keep=False):
-    """z-edge stack (3, ny, 3) of a (nz, ny, 3) x-column stack — the corner
-    values of the sequential x->y->z fill: the z formula applied to the
-    x-ghost columns.  BC values are scalars or padded (ny+2, nx+2) planes
-    (z-wall-model Neumann values; their x-ghost/rewrite columns are what
-    the sequential fill reads there — _corner_cols)."""
-    first, second_last, last = cols[0], cols[-2], cols[-1]
-    b0 = _corner_cols(bcvals[0], cols.dtype)
-    b1 = _corner_cols(bcvals[1], cols.dtype)
-    if not face:
-        if letters[0] == 'P':
-            lo, hi = last, first
-        else:
-            lo = 2.0 * b0 - first if letters[0] == 'D' else -dr[0] * b0 + first
-            hi = 2.0 * b1 - last if letters[1] == 'D' else dr[1] * b1 + last
-        return jnp.stack([lo, last, hi])
-    if letters[0] == 'P':
-        return jnp.stack([last, last, first])
-    if keep:
-        # w corners at the retained lower z wall face: the vlo plane's
-        # x-ghost entries (padded plane cols [0, nx+1, nx])
-        lo = jnp.stack([vlo_plane[1:-1, 0], vlo_plane[1:-1, -1],
-                        vlo_plane[1:-1, -2]], axis=1).astype(cols.dtype)
-        hi = second_last if letters[1] == 'D' else last
-        return jnp.stack([lo, last, hi])
-    lo = _bfill(b0, first) if letters[0] == 'D' \
-        else -dr[0] * b0 + first
-    if letters[1] == 'D':
-        newlast, hi = _bfill(b1, first), second_last
-    else:
-        newlast, hi = dr[1] * b1 + second_last, last
-    return jnp.stack([lo, newlast, hi])
-
-
-def xedge_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,
-                   vlo=None, is_correc=False):
-    """x-ghost-column stacks (nz, ny, 3) for (u, v, w) + their z-edge
-    corner stacks (3, ny, 3) — the x-wall kernel-input protocol (cols
-    [padded x 0, padded x nx+1, padded x nx]).  Same semantics as
-    pad_velocity's x and z passes; bcu/bcv/bcw z-direction values may be
-    z-wall-model-updated planes (the timeloop passes the freshly-updated
-    pytrees, exactly as for the ye bundles — _corner_cols slices their
-    x-ghost columns); x-direction values are static scalars (x-wall wall
-    models stay off the kernel path)."""
-    nz = u.shape[0]
-    dr_x = (dl[0], dl[0])
-    dr_z_par = (float(dzc[0]), float(dzc[nz]))
-    dr_z_nrm = (float(dzf[0]), float(dzf[nz]))
-    xlts = lambda ivel: (cbcvel[0][0][ivel], cbcvel[1][0][ivel])
-    zlts = lambda ivel: (cbcvel[0][2][ivel], cbcvel[1][2][ivel])
-    keep_u = is_correc and xlts(0)[0] != 'P' and vlo is not None
-    xu = _xcols_face(u, xlts(0), bcu[0], dr_x,
-                     lo_keep=vlo[0] if keep_u else None, keep=keep_u)
-    xv = _xcols_centered(v, xlts(1), bcv[0], dr_x)
-    xw = _xcols_centered(w, xlts(2), bcw[0], dr_x)
-    keep_w = is_correc and zlts(2)[0] != 'P' and vlo is not None
-    zxu = _zedge_of_xcols(xu, zlts(0), bcu[2], dr_z_par)
-    zxv = _zedge_of_xcols(xv, zlts(1), bcv[2], dr_z_par)
-    zxw = _zedge_of_xcols(xw, zlts(2), bcw[2], dr_z_nrm, face=True,
-                          vlo_plane=vlo[2] if keep_w else None, keep=keep_w)
-    return (xu, xv, xw), (zxu, zxv, zxw)
-
-
-def xedge_scalar(p, cbc, bcvals, dl, dzc):
-    """x-column stack + z-edge corner stack for a cell-centered scalar
-    (boundp x/z semantics)."""
-    nz = p.shape[0]
-    xp_ = _xcols_centered(p, cbc[0], bcvals[0], (dl[0], dl[0]))
-    zxp = _zedge_of_xcols(xp_, cbc[2], bcvals[2],
-                          (float(dzc[0]), float(dzc[nz])))
-    return xp_, zxp
 
 
 def pad_velocity(u, v, w, cbcvel, bcu, bcv, bcw, dl, dzc, dzf,

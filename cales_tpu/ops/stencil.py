@@ -1,7 +1,7 @@
 """Fused stencil kernels of the physics layer, written as shifted-slice
 expressions on ghost-padded (nz+2, ny+2, nx+2) arrays so XLA fuses them into
-single bandwidth-bound passes (the TPU analogue of the reference's OpenACC
-collapse(3) kernels).
+single bandwidth-bound passes (the analogue of the reference's OpenACC
+collapse(3) loop kernels).
 
 Reference parity:
   * momentum_rhs  <- mom_xyz_ad      /root/reference/src/mom.f90:17-309
@@ -61,16 +61,11 @@ def momentum_rhs(up, vp, wp, sp, visc, dxi, dyi, dzci, dzfi, with_sgs=True):
                              visc, dxi, dyi, with_sgs=with_sgs)
 
 
-def momentum_rhs_core(V, M, up, vp, wp, sp, visc, dxi, dyi,
-                      components=('u', 'v', 'w'), with_sgs=True):
+def momentum_rhs_core(V, M, up, vp, wp, sp, visc, dxi, dyi, with_sgs=True):
     """The discretization itself, written against an accessor interface so
-    the XLA expression path and the Pallas VMEM-window kernel share the SAME
-    formulas (mom.f90:17-309):
+    any evaluator of the same formulas (mom.f90:17-309) shares them:
       V(field, k=, j=, i=) -> interior-shifted view;
       M(name) -> z metric broadcast ('dzci_c','dzci_m','dzfi_c','dzfi_p').
-
-    components: which momentum components to evaluate (the others return
-    None triples) — used by the fused-fillps kernel's single-row v eval.
 
     with_sgs=False (sgstype 'none'): visct == 0 identically, so the eddy
     stress-tensor terms (the only consumers of sp) are exact zeros — sp is
@@ -78,9 +73,6 @@ def momentum_rhs_core(V, M, up, vp, wp, sp, visc, dxi, dyi,
     with_sgs=True evaluation on a zero sp (adding exact float zeros is the
     identity), which the parity test checks.
     """
-    want_u = 'u' in components
-    want_v = 'v' in components
-    want_w = 'w' in components
     dzci_c = M('dzci_c')
     dzci_m = M('dzci_m')
     dzfi_c = M('dzfi_c')
@@ -116,148 +108,143 @@ def momentum_rhs_core(V, M, up, vp, wp, sp, visc, dxi, dyi,
     dwdx_e = (w_pcc - w_ccc) * dxi
     dwdy_e = (w_cpc - w_ccc) * dyi
 
-    u_out = v_out = w_out = (None, None, None)
-
     # ---- u momentum ----
-    if want_u:
-        u_mcc = u_mcc_f
-        u_cmc = V(up, j=-1)
-        u_ccm = V(up, k=-1)
-        v_pmc = V(vp, j=-1, i=1)
-        w_pcm = V(wp, k=-1, i=1)
+    u_mcc = u_mcc_f
+    u_cmc = V(up, j=-1)
+    u_ccm = V(up, k=-1)
+    v_pmc = V(vp, j=-1, i=1)
+    w_pcm = V(wp, k=-1, i=1)
 
-        dudx_ip = (u_pcc - u_ccc) * dxi
-        dudx_im = (u_ccc - u_mcc) * dxi
-        dudy_jp = dudy_e
-        dudy_jm = (u_ccc - u_cmc) * dyi
-        dudz_kp = dudz_e
-        dudz_km = (u_ccc - u_ccm) * dzci_m
+    dudx_ip = (u_pcc - u_ccc) * dxi
+    dudx_im = (u_ccc - u_mcc) * dxi
+    dudy_jp = dudy_e
+    dudy_jm = (u_ccc - u_cmc) * dyi
+    dudz_kp = dudz_e
+    dudz_km = (u_ccc - u_ccm) * dzci_m
 
-        uu_ip = 0.25 * (u_pcc + u_ccc) * (u_ccc + u_pcc)
-        uu_im = 0.25 * (u_mcc + u_ccc) * (u_ccc + u_mcc)
-        vu_jp = 0.25 * (v_pcc + v_ccc) * (u_ccc + u_cpc)
-        vu_jm = 0.25 * (v_pmc + v_cmc) * (u_ccc + u_cmc)
-        wu_kp = 0.25 * (w_pcc + w_ccc) * (u_ccc + u_ccp)
-        wu_km = 0.25 * (w_pcm + w_ccm) * (u_ccc + u_ccm)
+    uu_ip = 0.25 * (u_pcc + u_ccc) * (u_ccc + u_pcc)
+    uu_im = 0.25 * (u_mcc + u_ccc) * (u_ccc + u_mcc)
+    vu_jp = 0.25 * (v_pcc + v_ccc) * (u_ccc + u_cpc)
+    vu_jm = 0.25 * (v_pmc + v_cmc) * (u_ccc + u_cmc)
+    wu_kp = 0.25 * (w_pcc + w_ccc) * (u_ccc + u_ccp)
+    wu_km = 0.25 * (w_pcm + w_ccm) * (u_ccc + u_ccm)
 
-        dudtd_xy = visc * ((dudx_ip - dudx_im) * dxi
-                           + (dudy_jp - dudy_jm) * dyi)
-        dudtd_z = visc * (dudz_kp - dudz_km) * dzfi_c
-        dudt = (-(uu_ip - uu_im) * dxi - (vu_jp - vu_jm) * dyi
-                - (wu_kp - wu_km) * dzfi_c)
-        if with_sgs:
-            s_cmc, s_pmc = V(sp, j=-1), V(sp, j=-1, i=1)
-            s_ccm, s_pcm = V(sp, k=-1), V(sp, k=-1, i=1)
-            visc_ip, visc_im = s_pcc, s_ccc
-            visc_jp = visc_e_xy
-            visc_jm = 0.25 * (s_ccc + s_pcc + s_cmc + s_pmc)
-            visc_kp = visc_e_xz
-            visc_km = 0.25 * (s_ccc + s_pcc + s_ccm + s_pcm)
-            dvdx_jp = dvdx_e
-            dvdx_jm = (v_pmc - v_cmc) * dxi
-            dwdx_kp = dwdx_e
-            dwdx_km = (w_pcm - w_ccm) * dxi
-            dudt = (dudt
-                    + (visc_ip * 2.0 * dudx_ip - visc_im * 2.0 * dudx_im) * dxi
-                    + (visc_jp * (dudy_jp + dvdx_jp) - visc_jm * (dudy_jm + dvdx_jm)) * dyi
-                    + (visc_kp * (dudz_kp + dwdx_kp) - visc_km * (dudz_km + dwdx_km)) * dzfi_c)
-        u_out = (dudt, dudtd_xy, dudtd_z)
+    dudtd_xy = visc * ((dudx_ip - dudx_im) * dxi
+                       + (dudy_jp - dudy_jm) * dyi)
+    dudtd_z = visc * (dudz_kp - dudz_km) * dzfi_c
+    dudt = (-(uu_ip - uu_im) * dxi - (vu_jp - vu_jm) * dyi
+            - (wu_kp - wu_km) * dzfi_c)
+    if with_sgs:
+        s_cmc, s_pmc = V(sp, j=-1), V(sp, j=-1, i=1)
+        s_ccm, s_pcm = V(sp, k=-1), V(sp, k=-1, i=1)
+        visc_ip, visc_im = s_pcc, s_ccc
+        visc_jp = visc_e_xy
+        visc_jm = 0.25 * (s_ccc + s_pcc + s_cmc + s_pmc)
+        visc_kp = visc_e_xz
+        visc_km = 0.25 * (s_ccc + s_pcc + s_ccm + s_pcm)
+        dvdx_jp = dvdx_e
+        dvdx_jm = (v_pmc - v_cmc) * dxi
+        dwdx_kp = dwdx_e
+        dwdx_km = (w_pcm - w_ccm) * dxi
+        dudt = (dudt
+                + (visc_ip * 2.0 * dudx_ip - visc_im * 2.0 * dudx_im) * dxi
+                + (visc_jp * (dudy_jp + dvdx_jp) - visc_jm * (dudy_jm + dvdx_jm)) * dyi
+                + (visc_kp * (dudz_kp + dwdx_kp) - visc_km * (dudz_km + dwdx_km)) * dzfi_c)
+    u_out = (dudt, dudtd_xy, dudtd_z)
 
     # ---- v momentum ----
-    if want_v:
-        v_pcc_f, v_mcc = v_pcc, V(vp, i=-1)
-        v_cmc_f = v_cmc
-        v_ccm = V(vp, k=-1)
-        u_mpc = V(up, j=1, i=-1)
-        w_cpm = V(wp, k=-1, j=1)
+    v_pcc_f, v_mcc = v_pcc, V(vp, i=-1)
+    v_cmc_f = v_cmc
+    v_ccm = V(vp, k=-1)
+    u_mpc = V(up, j=1, i=-1)
+    w_cpm = V(wp, k=-1, j=1)
 
-        dvdx_ip = dvdx_e
-        dvdx_im = (v_ccc - v_mcc) * dxi
-        dvdy_jp = (v_cpc - v_ccc) * dyi
-        dvdy_jm = (v_ccc - v_cmc_f) * dyi
-        dvdz_kp = dvdz_e
-        dvdz_km = (v_ccc - v_ccm) * dzci_m
+    dvdx_ip = dvdx_e
+    dvdx_im = (v_ccc - v_mcc) * dxi
+    dvdy_jp = (v_cpc - v_ccc) * dyi
+    dvdy_jm = (v_ccc - v_cmc_f) * dyi
+    dvdz_kp = dvdz_e
+    dvdz_km = (v_ccc - v_ccm) * dzci_m
 
-        uv_ip = 0.25 * (u_ccc + u_cpc) * (v_ccc + v_pcc_f)
-        uv_im = 0.25 * (u_mcc_f + u_mpc) * (v_ccc + v_mcc)
-        vv_jp = 0.25 * (v_ccc + v_cpc) * (v_ccc + v_cpc)
-        vv_jm = 0.25 * (v_ccc + v_cmc_f) * (v_ccc + v_cmc_f)
-        wv_kp = 0.25 * (w_ccc + w_cpc) * (v_ccc + v_ccp)
-        wv_km = 0.25 * (w_ccm + w_cpm) * (v_ccc + v_ccm)
+    uv_ip = 0.25 * (u_ccc + u_cpc) * (v_ccc + v_pcc_f)
+    uv_im = 0.25 * (u_mcc_f + u_mpc) * (v_ccc + v_mcc)
+    vv_jp = 0.25 * (v_ccc + v_cpc) * (v_ccc + v_cpc)
+    vv_jm = 0.25 * (v_ccc + v_cmc_f) * (v_ccc + v_cmc_f)
+    wv_kp = 0.25 * (w_ccc + w_cpc) * (v_ccc + v_ccp)
+    wv_km = 0.25 * (w_ccm + w_cpm) * (v_ccc + v_ccm)
 
-        dvdtd_xy = visc * ((dvdx_ip - dvdx_im) * dxi
-                           + (dvdy_jp - dvdy_jm) * dyi)
-        dvdtd_z = visc * (dvdz_kp - dvdz_km) * dzfi_c
-        dvdt = (-(uv_ip - uv_im) * dxi - (vv_jp - vv_jm) * dyi
-                - (wv_kp - wv_km) * dzfi_c)
-        if with_sgs:
-            s_mcc, s_mpc = V(sp, i=-1), V(sp, j=1, i=-1)
-            s_cpm = V(sp, k=-1, j=1)
-            s_ccm_v = V(sp, k=-1)
-            visc_ip = visc_e_xy
-            visc_im = 0.25 * (s_ccc + s_cpc + s_mcc + s_mpc)
-            visc_jp, visc_jm = s_cpc, s_ccc
-            visc_kp = visc_e_yz
-            visc_km = 0.25 * (s_ccc + s_cpc + s_ccm_v + s_cpm)
-            dudy_ip = dudy_e
-            dudy_im = (u_mpc - u_mcc_f) * dyi
-            dwdy_kp = dwdy_e
-            dwdy_km = (w_cpm - w_ccm) * dyi
-            dvdt = (dvdt
-                    + (visc_ip * (dvdx_ip + dudy_ip) - visc_im * (dvdx_im + dudy_im)) * dxi
-                    + (visc_jp * 2.0 * dvdy_jp - visc_jm * 2.0 * dvdy_jm) * dyi
-                    + (visc_kp * (dvdz_kp + dwdy_kp) - visc_km * (dvdz_km + dwdy_km)) * dzfi_c)
-        v_out = (dvdt, dvdtd_xy, dvdtd_z)
+    dvdtd_xy = visc * ((dvdx_ip - dvdx_im) * dxi
+                       + (dvdy_jp - dvdy_jm) * dyi)
+    dvdtd_z = visc * (dvdz_kp - dvdz_km) * dzfi_c
+    dvdt = (-(uv_ip - uv_im) * dxi - (vv_jp - vv_jm) * dyi
+            - (wv_kp - wv_km) * dzfi_c)
+    if with_sgs:
+        s_mcc, s_mpc = V(sp, i=-1), V(sp, j=1, i=-1)
+        s_cpm = V(sp, k=-1, j=1)
+        s_ccm_v = V(sp, k=-1)
+        visc_ip = visc_e_xy
+        visc_im = 0.25 * (s_ccc + s_cpc + s_mcc + s_mpc)
+        visc_jp, visc_jm = s_cpc, s_ccc
+        visc_kp = visc_e_yz
+        visc_km = 0.25 * (s_ccc + s_cpc + s_ccm_v + s_cpm)
+        dudy_ip = dudy_e
+        dudy_im = (u_mpc - u_mcc_f) * dyi
+        dwdy_kp = dwdy_e
+        dwdy_km = (w_cpm - w_ccm) * dyi
+        dvdt = (dvdt
+                + (visc_ip * (dvdx_ip + dudy_ip) - visc_im * (dvdx_im + dudy_im)) * dxi
+                + (visc_jp * 2.0 * dvdy_jp - visc_jm * 2.0 * dvdy_jm) * dyi
+                + (visc_kp * (dvdz_kp + dwdy_kp) - visc_km * (dvdz_km + dwdy_km)) * dzfi_c)
+    v_out = (dvdt, dvdtd_xy, dvdtd_z)
 
     # ---- w momentum ----
-    if want_w:
-        w_pcc_f, w_mcc = w_pcc, V(wp, i=-1)
-        w_cpc_f, w_cmc = w_cpc, V(wp, j=-1)
-        w_ccp, w_ccm_f = V(wp, k=1), w_ccm
-        u_mcp = V(up, k=1, i=-1)
-        u_ccp_f = u_ccp
-        v_cmp = V(vp, k=1, j=-1)
-        v_ccp_f = v_ccp
-        v_cmc_w = v_cmc
+    w_pcc_f, w_mcc = w_pcc, V(wp, i=-1)
+    w_cpc_f, w_cmc = w_cpc, V(wp, j=-1)
+    w_ccp, w_ccm_f = V(wp, k=1), w_ccm
+    u_mcp = V(up, k=1, i=-1)
+    u_ccp_f = u_ccp
+    v_cmp = V(vp, k=1, j=-1)
+    v_ccp_f = v_ccp
+    v_cmc_w = v_cmc
 
-        dwdx_ip = dwdx_e
-        dwdx_im = (w_ccc - w_mcc) * dxi
-        dwdy_jp = dwdy_e
-        dwdy_jm = (w_ccc - w_cmc) * dyi
-        dwdz_kp = (w_ccp - w_ccc) * dzfi_p
-        dwdz_km = (w_ccc - w_ccm_f) * dzfi_c
+    dwdx_ip = dwdx_e
+    dwdx_im = (w_ccc - w_mcc) * dxi
+    dwdy_jp = dwdy_e
+    dwdy_jm = (w_ccc - w_cmc) * dyi
+    dwdz_kp = (w_ccp - w_ccc) * dzfi_p
+    dwdz_km = (w_ccc - w_ccm_f) * dzfi_c
 
-        uw_ip = 0.25 * (u_ccc + u_ccp_f) * (w_ccc + w_pcc_f)
-        uw_im = 0.25 * (u_mcc_f + u_mcp) * (w_ccc + w_mcc)
-        vw_jp = 0.25 * (v_ccc + v_ccp_f) * (w_ccc + w_cpc_f)
-        vw_jm = 0.25 * (v_cmc_w + v_cmp) * (w_ccc + w_cmc)
-        ww_kp = 0.25 * (w_ccc + w_ccp) * (w_ccc + w_ccp)
-        ww_km = 0.25 * (w_ccc + w_ccm_f) * (w_ccc + w_ccm_f)
+    uw_ip = 0.25 * (u_ccc + u_ccp_f) * (w_ccc + w_pcc_f)
+    uw_im = 0.25 * (u_mcc_f + u_mcp) * (w_ccc + w_mcc)
+    vw_jp = 0.25 * (v_ccc + v_ccp_f) * (w_ccc + w_cpc_f)
+    vw_jm = 0.25 * (v_cmc_w + v_cmp) * (w_ccc + w_cmc)
+    ww_kp = 0.25 * (w_ccc + w_ccp) * (w_ccc + w_ccp)
+    ww_km = 0.25 * (w_ccc + w_ccm_f) * (w_ccc + w_ccm_f)
 
-        dwdtd_xy = visc * ((dwdx_ip - dwdx_im) * dxi
-                           + (dwdy_jp - dwdy_jm) * dyi)
-        dwdtd_z = visc * (dwdz_kp - dwdz_km) * dzci_c
-        dwdt = (-(uw_ip - uw_im) * dxi - (vw_jp - vw_jm) * dyi
-                - (ww_kp - ww_km) * dzci_c)
-        if with_sgs:
-            s_mcc_w = V(sp, i=-1)
-            s_mcp = V(sp, k=1, i=-1)
-            s_cmp = V(sp, k=1, j=-1)
-            s_cmc2 = V(sp, j=-1)
-            visc_ip = visc_e_xz
-            visc_im = 0.25 * (s_ccc + s_ccp + s_mcc_w + s_mcp)
-            visc_jp = visc_e_yz
-            visc_jm = 0.25 * (s_ccc + s_ccp + s_cmc2 + s_cmp)
-            visc_kp, visc_km = s_ccp, s_ccc
-            dudz_ip = dudz_e
-            dudz_im = (u_mcp - u_mcc_f) * dzci_c
-            dvdz_jp = dvdz_e
-            dvdz_jm = (v_cmp - v_cmc_w) * dzci_c
-            dwdt = (dwdt
-                    + (visc_ip * (dwdx_ip + dudz_ip) - visc_im * (dwdx_im + dudz_im)) * dxi
-                    + (visc_jp * (dwdy_jp + dvdz_jp) - visc_jm * (dwdy_jm + dvdz_jm)) * dyi
-                    + (visc_kp * 2.0 * dwdz_kp - visc_km * 2.0 * dwdz_km) * dzci_c)
-        w_out = (dwdt, dwdtd_xy, dwdtd_z)
+    dwdtd_xy = visc * ((dwdx_ip - dwdx_im) * dxi
+                       + (dwdy_jp - dwdy_jm) * dyi)
+    dwdtd_z = visc * (dwdz_kp - dwdz_km) * dzci_c
+    dwdt = (-(uw_ip - uw_im) * dxi - (vw_jp - vw_jm) * dyi
+            - (ww_kp - ww_km) * dzci_c)
+    if with_sgs:
+        s_mcc_w = V(sp, i=-1)
+        s_mcp = V(sp, k=1, i=-1)
+        s_cmp = V(sp, k=1, j=-1)
+        s_cmc2 = V(sp, j=-1)
+        visc_ip = visc_e_xz
+        visc_im = 0.25 * (s_ccc + s_ccp + s_mcc_w + s_mcp)
+        visc_jp = visc_e_yz
+        visc_jm = 0.25 * (s_ccc + s_ccp + s_cmc2 + s_cmp)
+        visc_kp, visc_km = s_ccp, s_ccc
+        dudz_ip = dudz_e
+        dudz_im = (u_mcp - u_mcc_f) * dzci_c
+        dvdz_jp = dvdz_e
+        dvdz_jm = (v_cmp - v_cmc_w) * dzci_c
+        dwdt = (dwdt
+                + (visc_ip * (dwdx_ip + dudz_ip) - visc_im * (dwdx_im + dudz_im)) * dxi
+                + (visc_jp * (dwdy_jp + dvdz_jp) - visc_jm * (dwdy_jm + dvdz_jm)) * dyi
+                + (visc_kp * 2.0 * dwdz_kp - visc_km * 2.0 * dwdz_km) * dzci_c)
+    w_out = (dwdt, dwdtd_xy, dwdtd_z)
 
     return (u_out, v_out, w_out)
 
@@ -394,7 +381,7 @@ def strain_rate(up, vp, wp, dzci, dzfi, dxi, dyi, with_sij=False):
 
 def strain_rate_core(V, M, up, vp, wp, dxi, dyi, with_sij=False):
     """strain_rate discretization against the (V, M) accessor interface
-    (shared by the XLA path and the Pallas SGS kernel)."""
+    (see momentum_rhs_core)."""
     dzci_c = M('dzci_c')
     dzci_m = M('dzci_m')
     dzfi_c = M('dzfi_c')
@@ -450,17 +437,15 @@ def interp_center(up, vp, wp):
 
 def bulk_mean(f, grid_vol_ratio):
     """Volume-weighted mean (utils.f90:16-47); grid_vol_ratio: (nz,) weights
-    dx*dy*dzf(k)/V.  Two-stage: plane sums then a tiny weighted dot — the
-    single fused multiply-reduce ran ~30x below bandwidth on TPU."""
+    dx*dy*dzf(k)/V.  Two-stage: plane sums then a tiny weighted dot."""
     plane = jnp.sum(f, axis=(1, 2))
     return jnp.dot(plane, jnp.asarray(grid_vol_ratio, dtype=f.dtype))
 
 
 def scalar_rhs_core(V, M, up, vp, wp, sp, alpha, dxi, dyi):
     """Passive-scalar advection-diffusion RHS through the accessor
-    interface (scal.f90:14-51) — shared by the XLA expression path
-    (scal.scalar_rhs) and the Pallas momentum mega-kernel's fused scalar
-    stream.  V(field, k=, j=, i=) reads a shifted plane; M(name) reads the
+    interface (scal.f90:14-51), evaluated by scal.scalar_rhs.
+    V(field, k=, j=, i=) reads a shifted plane; M(name) reads the
     z metric ('dzci_c', 'dzci_m', 'dzfi_c'); alpha = visc/Pr."""
     s_c = V(sp)
     usim = 0.5 * (V(sp, i=-1) + s_c) * V(up, i=-1)

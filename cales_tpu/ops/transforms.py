@@ -1,15 +1,15 @@
 """1D transforms that diagonalize the second-difference operator per BC pair.
 
-TPU-native counterpart of the reference FFT layer
+JAX counterpart of the reference FFT layer
 (/root/reference/src/fft.f90:192-245 ``find_fft``,
 /root/reference/src/initsolver.f90:66-125 ``eigenvalues``).
 
-Design: periodic directions use native XLA FFTs (``jnp.fft.rfft/fft``); all
-non-periodic kinds (DCT/DST families) are applied as **precomputed operator
-matrices on the MXU** (a single batched matmul along the axis).  This is exact,
-removes the Makhoul pre/post-processing choreography the reference needs for
-cuFFT (fft.f90:273-493), and maps the work onto the TPU's systolic array.  The
-matrices are built once per solver in float64 and cast to the compute dtype.
+Design: periodic directions use native XLA FFTs (``jnp.fft.rfft/fft``, cuFFT
+on the GPU); all non-periodic kinds (DCT/DST families) are applied as
+**precomputed operator matrices** (a single batched matmul along the axis).
+This is exact and removes the Makhoul pre/post-processing choreography the
+reference needs for cuFFT (fft.f90:273-493).  The matrices are built once per
+solver in float64 and cast to the compute dtype.
 
 Every (transform, eigenvalues) pair here is defined by the requirement that it
 *exactly* diagonalizes the 1D second-difference operator assembled from the
@@ -79,13 +79,10 @@ def make_transform(bc: str, c_or_f: str, n: int,
     (cell-centered) or 'f' (face-centered) staggering of the solved variable.
 
     pp_mat: apply the periodic transform as a real half-complex DFT operator
-    matrix on the MXU instead of ``jnp.fft.rfft``.  The circulant
-    second-difference operator is diagonalized by the real cos/sin pairs
-    (rows ordered [cos k=0..n/2, sin k=1..ceil(n/2)-1]), so the whole
-    Poisson solve stays real-valued — XLA's TPU FFT lowering spends most of
-    its time on layout copies (measured 17 ms/solve at 512x256x256 vs ~5 ms
-    as matmuls), while a (n, n) matmul at n <= a few thousand is cheap MXU
-    work.  Eigenvalues are returned in matrix row order.
+    matrix instead of ``jnp.fft.rfft``.  The circulant second-difference
+    operator is diagonalized by the real cos/sin pairs (rows ordered
+    [cos k=0..n/2, sin k=1..ceil(n/2)-1]), so the whole Poisson solve stays
+    real-valued.  Eigenvalues are returned in matrix row order.
     """
     pi = np.pi
     if bc == 'PP':
@@ -153,28 +150,61 @@ def make_transform(bc: str, c_or_f: str, n: int,
 # application along an axis of a (z, y, x) array
 # ---------------------------------------------------------------------------
 
-def _matmul_axis(arr, mat, axis):
-    """Contract `mat` (k_out, k_in) with `arr` along `axis` on the MXU.
+# Precision of the float32 operator contractions (DCT/DST matrices, the z
+# eigenbasis): HIGHEST, true float32 products.  On an H100 the default and
+# HIGH run one TF32 pass (10-bit mantissa): the z eigen-solve lost three
+# digits (4.0e-4 vs 2.3e-7 relative) and the channel-LES step drifted 7.6x
+# further from float64 after 30 steps, for a 5.5% faster step; the 3-pass
+# TF32 algorithm was no faster than HIGHEST (PERF.md).
+F32_PRECISION = jax.lax.Precision.HIGHEST
 
-    Precision: f32 runs at HIGH (bf16x3 passes) — measured solve 5.9 ->
-    3.4 ms at 512x256x256 with the post-projection divergence unchanged
-    (7.3e-6 vs 7.8e-6 after 20 channel steps) and field drift at f32 noise;
-    f64 (the CPU oracle path) stays at HIGHEST/full precision."""
-    is_f32 = arr.dtype in (jnp.float32, jnp.complex64)
-    mat = jnp.asarray(mat, dtype=jnp.float32 if is_f32 else jnp.float64)
-    prec = jax.lax.Precision.HIGH if is_f32 else jax.lax.Precision.HIGHEST
 
-    def apply(real_arr):
-        # moveaxis + minor-dim matmul beats a direct mid-axis dot_general on
-        # TPU (XLA fuses the transposes; measured 4.9 vs 5.8 ms/solve at
-        # 512x256x256), and keeps default layouts for the CPU FFT thunk
-        moved = jnp.moveaxis(real_arr, axis, -1)
-        out = jnp.matmul(moved, mat.T, precision=prec)
-        return jnp.moveaxis(out, -1, axis)
+def precision(dtype):
+    """Dot precision for operator contractions on arrays of `dtype`:
+    float64 always runs at full precision."""
+    if np.dtype(dtype) in (np.dtype(np.float32), np.dtype(np.complex64)):
+        return F32_PRECISION
+    return jax.lax.Precision.HIGHEST
 
+
+def precision_name(dtype) -> str:
+    p = precision(dtype)
+    return getattr(p, 'name', str(p))
+
+
+def _real_parts(arr, apply):
+    # real operators act on the real and imaginary planes separately: a
+    # complex x real contraction would run as a complex product at twice
+    # the flops
     if jnp.iscomplexobj(arr):
         return jax.lax.complex(apply(arr.real), apply(arr.imag))
     return apply(arr)
+
+
+def contract_leading(mat, arr):
+    """mat (k_out, k_in) applied along axis 0 of `arr`: one (k, k) x
+    (k, rest) matrix product with no transpose."""
+    rdt = arr.real.dtype if jnp.iscomplexobj(arr) else arr.dtype
+    m = jnp.asarray(mat, dtype=rdt)
+    prec = precision(rdt)
+    return _real_parts(arr, lambda a: jnp.tensordot(m, a, axes=(1, 0),
+                                                    precision=prec))
+
+
+def _matmul_axis(arr, mat, axis):
+    """Contract `mat` (k_out, k_in) with `arr` along `axis`."""
+    rdt = arr.real.dtype if jnp.iscomplexobj(arr) else arr.dtype
+    m = jnp.asarray(mat, dtype=rdt)
+    prec = precision(rdt)
+
+    def apply(real_arr):
+        # moveaxis + minor-dim matmul keeps default layouts for the FFT
+        # thunks around it
+        moved = jnp.moveaxis(real_arr, axis, -1)
+        out = jnp.matmul(moved, m.T, precision=prec)
+        return jnp.moveaxis(out, -1, axis)
+
+    return _real_parts(arr, apply)
 
 
 def fwd(tr: Transform1D, arr, axis: int):

@@ -1,12 +1,13 @@
 """Batched tridiagonal solvers along the leading (z) axis.
 
-TPU-native counterpart of the reference Thomas kernels
+JAX counterpart of the reference Thomas kernels
 (/root/reference/src/solver.f90:82-179 ``gaussel``/``dgtsv_homebrewed`` and
 solver.f90:109-151 ``gaussel_periodic``).
 
 The solve axis is axis 0 of a (nz, ...) array so each scan step touches a
-contiguous (ny, nx) tile — ideal for the VPU.  The diagonal is
-``b[k] + lam`` with ``lam`` broadcast over the batch (the modified-wavenumber
+contiguous (ny, nx) plane.  ops/zsweep.py is the GPU kernel of the same
+sweep; these scans are its reference and the implementation elsewhere.
+The diagonal is ``b[k] + lam`` with ``lam`` broadcast over the batch (the modified-wavenumber
 shift of the eigenfunction method).  RHS may be complex (a, b, c, lam real).
 """
 from __future__ import annotations

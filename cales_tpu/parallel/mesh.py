@@ -1,6 +1,6 @@
 """Device-mesh domain decomposition.
 
-TPU-native replacement of the reference's pencil-decomposition runtimes
+JAX replacement of the reference's pencil-decomposition runtimes
 (2DECOMP&FFT and NVIDIA cuDecomp, SURVEY.md §2.2; initmpi.f90:34-206):
 
   * the global (nz, ny, nx) field is sharded over a 2D ``Mesh`` with axes
@@ -12,7 +12,7 @@ TPU-native replacement of the reference's pencil-decomposition runtimes
     analogue, bound.f90:698-723);
   * the Poisson solver's pencil transposes (solver_gpu.f90:80-158) become
     sharding constraints around each transform stage; GSPMD lowers the
-    resharding to all-to-alls over ICI;
+    resharding to all-to-alls (NCCL over NVLink on GPUs);
   * the reference's communication-backend autotuning (param.f90:180-217)
     collapses into the mesh-shape choice — there is a single XLA backend.
 """

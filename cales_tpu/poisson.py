@@ -1,6 +1,6 @@
-"""FFT/MXU eigenfunction-expansion direct Poisson/Helmholtz solver.
+"""FFT/matrix eigenfunction-expansion direct Poisson/Helmholtz solver.
 
-TPU-native rebuild of the reference solver stack:
+JAX rebuild of the reference solver stack:
   * setup: /root/reference/src/initsolver.f90:17-169 (eigenvalues, tridmatrix)
   * solve: /root/reference/src/solver.f90:20-233 (transform -> batched Thomas
     in z -> inverse transform), solver_gpu.f90:32-477
@@ -19,7 +19,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -56,7 +55,7 @@ def tridmatrix(bc: str, n: int, dzci: np.ndarray, dzfi: np.ndarray,
 def _z_eigendecomposition(a, b, c, weights, periodic):
     """Eigendecomposition of the z tridiagonal operator T (matrix
     diagonalization method; replaces the sequential Thomas sweep with two
-    MXU matmuls along z — no loop-carried dependency on TPU).
+    dense matmuls along z — no loop-carried dependency).
 
     T is similar to a symmetric matrix via D^{1/2} with D = diag(weights):
     weights = dzf (cell-centered z) or dzc (face-centered z) make
@@ -121,7 +120,8 @@ class DirectSolver:
     zVl: np.ndarray | None = None    # (nzs, nzs)
     zVr: np.ndarray | None = None
     lamz: np.ndarray | None = None   # (nzs,)
-    zsolver: str = 'eig'             # 'eig' (MXU matmuls) | 'thomas' (scan)
+    zsolver: str = 'eig'             # 'eig' (dense matmuls) | 'thomas' (sweep)
+    zimpl: str = 'scan'              # thomas only: 'sweep' (GPU kernel) | 'scan'
 
     @property
     def qz(self) -> int:
@@ -130,19 +130,18 @@ class DirectSolver:
 
 
 def make_solver(cfg: Config, grid: Grid, cbc, c_or_f,
-                zsolver: str = 'eig') -> DirectSolver:
-    """cbc: per-direction BC pairs [(lo,hi) x 3] as two-letter strings."""
+                zsolver: str = 'eig', platform: str = 'cpu',
+                sharded: bool = False) -> DirectSolver:
+    """cbc: per-direction BC pairs [(lo,hi) x 3] as two-letter strings.
+    platform / sharded: where the solve runs (picks the Thomas
+    implementation, see thomas_impl)."""
     nx, ny, nz = cfg.ng
     dli = cfg.dli
 
-    def pp_mat(n):
-        mode = getattr(cfg, 'ptransform', 'auto')
-        if mode == 'auto':
-            return jax.default_backend() == 'tpu' and n <= 4096
-        return mode == 'mat'
-
-    trx = tr.make_transform(cbc[0], c_or_f[0], nx, pp_mat=pp_mat(nx))
-    try_ = tr.make_transform(cbc[1], c_or_f[1], ny, pp_mat=pp_mat(ny))
+    # periodic directions: FFT unless the dense DFT operator is asked for
+    pp_mat = cfg.ptransform == 'mat'
+    trx = tr.make_transform(cbc[0], c_or_f[0], nx, pp_mat=pp_mat)
+    try_ = tr.make_transform(cbc[1], c_or_f[1], ny, pp_mat=pp_mat)
     a, b, c = tridmatrix(cbc[2], nz, grid.dzci, grid.dzfi, c_or_f[2])
     lamx = trx.lam * dli[0] ** 2
     lamy = try_.lam * dli[1] ** 2
@@ -162,132 +161,31 @@ def make_solver(cfg: Config, grid: Grid, cbc, c_or_f,
     return DirectSolver(ng=cfg.ng, c_or_f=tuple(c_or_f), bcx=cbc[0], bcy=cbc[1],
                         bcz=cbc[2], trx=trx, try_=try_, a=a, b=b, c=c,
                         lamx=lamx, lamy=lamy, zVl=zVl, zVr=zVr, lamz=lamz,
-                        zsolver=zsolver)
+                        zsolver=zsolver, zimpl=thomas_impl(platform, sharded))
 
 
-def pallas_eligible(sv: DirectSolver, shape, itemsize) -> bool:
-    """Whether the 3-pass aliased Pallas solve (ops/pallas_solve.py) can
-    run, for EITHER in/out contract — x-spectral (the kernel x fusion,
-    pre_xformed_x == skip_bwd_x == True) or physical (the x matmuls ride
-    the y passes as flat in-kernel dots): all-matmul square x/y transforms
-    with no excluded rows, z stage with no excluded plane, single
-    device."""
-    from .ops import pallas_solve as ps
-    nz, ny, nx = shape
-    return (sv.zsolver == 'eig' and sv.qz == 0
-            and sv.trx.kind == 'mat' and sv.trx.nsolve == nx
-            and sv.try_.kind == 'mat' and sv.try_.nsolve == ny
-            and ps.eligible(nz, ny, nx, itemsize))
+def resolve_zsolver(zsolver: str, platform: str, sharded: bool) -> str:
+    """The z solver a Simulation uses for Config.zsolver='auto'.
+
+    On one GPU the batched Thomas sweep kernel wins: 0.759 vs 1.145 ms per
+    solve alone and 24.12 vs 24.86 ms per channel-LES step against the eig
+    contractions (512x256x256 f32, H100 80GB HBM3 at 400 W, PERF.md).
+    Elsewhere, and on a device mesh (where GSPMD partitions the dense
+    contractions along z-local pencils), the eig contractions; the
+    lax.scan sweep is 7x slower than either on the GPU."""
+    if zsolver != 'auto':
+        return zsolver
+    return 'thomas' if thomas_impl(platform, sharded) == 'sweep' else 'eig'
 
 
-def pallas_sharded_eligible(sv: DirectSolver, shape, itemsize, mesh) -> bool:
-    """Whether the slab-sharded aliased Pallas solve can run: mesh
-    (gy>1, gx=1), all-matmul square transforms, Thomas-tileable z, and the
-    post-transpose per-shard lane count a multiple of 128."""
-    from .ops import pallas_solve as ps
-    if mesh is None:
-        return False
-    gy = mesh.shape.get('gy', 1)
-    gx = mesh.shape.get('gx', 1)
-    nz, ny, nx = shape
-    if gx != 1 or gy < 2 or ny % gy or nx % gy or (nx // gy) % 128:
-        return False
-    nxl = nx // gy
-    return (sv.zsolver == 'eig' and sv.qz == 0 and sv.bcz != 'PP'
-            and sv.trx.kind == 'mat' and sv.trx.nsolve == nx
-            and sv.try_.kind == 'mat' and sv.try_.nsolve == ny
-            and nx % 128 == 0 and (ny // gy) % 8 == 0
-            and ps.y_tiles(nz, ny // gy, nx, itemsize) is not None
-            and ps.y_tiles(nz, ny, nxl, itemsize) is not None
-            and ps.thomas_z_tiles(nz, ny, nxl, itemsize) is not None)
+def thomas_impl(platform: str, sharded: bool = False) -> str:
+    """Implementation of zsolver='thomas': the batched z-sweep kernel
+    (ops/zsweep.py) on one GPU, else a lax.scan sweep (GSPMD partitions the
+    scan; it cannot partition the kernel)."""
+    return 'sweep' if platform == 'gpu' and not sharded else 'scan'
 
 
-def solve_sharded_pallas(sv: DirectSolver, p, mesh, pallas_interpret=False):
-    """Slab-sharded (gy>1, gx=1) Poisson solve as per-shard aliased Pallas
-    passes around two explicit all-to-all pencil transposes — the
-    kernel-path analogue of the hints/GSPMD solve (solver_gpu.f90:80-158):
-
-      fwd-x (x locally complete)            1 aliased pass
-      all_to_all: split x, gather y         (nz, ny, nx//gy) per shard
-      fwd-y / Thomas-z / bwd-y              3 aliased passes
-      all_to_all back                       (nz, ny//gy, nx)
-      bwd-x                                 1 aliased pass
-
-    Caller must have checked pallas_sharded_eligible()."""
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-    from .ops import pallas_solve as ps
-
-    gy = mesh.shape['gy']
-    nz, ny, nx = p.shape
-    nxl = nx // gy
-    fxT = np.asarray(sv.trx.fwd_mat).T.copy()
-    bxT = np.asarray(sv.trx.bwd_mat).T.copy()
-    lam_scale = float(np.abs(sv.lamx).max() + np.abs(sv.lamy).max())
-    tol = float(np.finfo(np.dtype(p.dtype)).eps * lam_scale * 4.0)
-    lamx_full = np.asarray(sv.lamx)
-    pin = sv.bcz == 'NN'
-
-    def local(r):                       # (nz, ny//gy, nx)
-        i = jax.lax.axis_index('gy')
-        r = ps.apply_x(r, fxT, alias=True, interpret=pallas_interpret)
-        r = jax.lax.all_to_all(r, 'gy', split_axis=2, concat_axis=1,
-                               tiled=True)      # (nz, ny, nxl)
-        lamx_l = jax.lax.dynamic_slice(
-            jnp.asarray(lamx_full, r.dtype), (i * nxl,), (nxl,))
-        r = ps.apply_y(r, sv.try_.fwd_mat, alias=True,
-                       interpret=pallas_interpret)
-        r = ps.apply_thomas_z(r, sv.a, sv.b, sv.c, sv.lamy, lamx_l,
-                              pin_singular=pin, tol=tol,
-                              interpret=pallas_interpret)
-        r = ps.apply_y(r, sv.try_.bwd_mat, alias=True,
-                       interpret=pallas_interpret)
-        r = jax.lax.all_to_all(r, 'gy', split_axis=1, concat_axis=2,
-                               tiled=True)      # (nz, ny//gy, nx)
-        return ps.apply_x(r, bxT, alias=True, interpret=pallas_interpret)
-
-    return shard_map(local, mesh=mesh,
-                     in_specs=P(None, 'gy', 'gx'),
-                     out_specs=P(None, 'gy', 'gx'), check_vma=False)(p)
-
-
-def solve_z_only_sharded(sv: DirectSolver, p, alpha, mesh,
-                         pallas_interpret=False):
-    """Per-shard z-only CN Helmholtz (the _IMPDIFF_1D solves) under
-    shard_map: z is never sharded, so each shard solves its own
-    (nz, ny_loc, nx_loc) block with ZERO communication — the aliased
-    Pallas Thomas pass when the shard tiles (nx_loc % 128 == 0), else the
-    scan fallback per shard."""
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    def local(r):
-        return solve_z_only(sv, r, alpha, pallas=True,
-                            pallas_interpret=pallas_interpret)
-
-    return shard_map(local, mesh=mesh, in_specs=P(None, 'gy', 'gx'),
-                     out_specs=P(None, 'gy', 'gx'), check_vma=False)(p)
-
-
-def pallas_helmholtz_eligible(sv: DirectSolver, shape, itemsize) -> bool:
-    """Whether the aliased Pallas Helmholtz pipeline (solve with alpha) can
-    run for this component solver: all-matmul square x/y transforms and a
-    Thomas-tileable z stage (qz handled via the in-kernel passthrough
-    tail; periodic z via the rank-1 kernel)."""
-    from .ops import pallas_solve as ps
-    nz, ny, nx = shape
-    return (sv.trx.kind == 'mat' and sv.trx.nsolve == nx
-            and sv.try_.kind == 'mat' and sv.try_.nsolve == ny
-            and nx % 128 == 0 and ny % 8 == 0
-            and ps.thomas_z_tiles(nz, ny, nx, itemsize) is not None
-            and ps.y_tiles(nz, ny, nx, itemsize) is not None
-            and (sv.bcz != 'PP' or (sv.qz == 0 and nz >= 3))
-            and nz - sv.qz >= 2)
-
-
-def solve(sv: DirectSolver, p, alpha=None, hints=None,
-          pre_xformed_x=False, skip_bwd_x=False, pre_xformed_xy=False,
-          pallas=False, pallas_interpret=False):
+def solve(sv: DirectSolver, p, alpha=None, hints=None):
     """Solve L p_new = p (Poisson) or (I + alpha*L) p_new = p (Helmholtz,
     main.f90:424-443 with alpha = -nu*dt_rk/2) in place of the input RHS.
 
@@ -296,211 +194,65 @@ def solve(sv: DirectSolver, p, alpha=None, hints=None,
 
     `hints` (parallel.mesh.ShardingHints): sharding constraints around each
     stage; GSPMD lowers the reshardings to the all-to-all pencil transposes
-    of the reference (solver_gpu.f90:80-158).
-
-    pre_xformed_x / skip_bwd_x: the caller already applied / will apply the
-    x operator matmul itself (the Pallas-kernel x-transform fusion: the
-    projection RHS leaves the momentum kernel x-spectral and the corrector
-    kernel consumes the solution x-spectral, putting those matmuls on the
-    kernels' otherwise-idle MXU).  pre_xformed_xy: the RHS arrives fully
-    (x AND y)-transformed in the untransposed (z, ky, kx) layout (the
-    fillps kernel's accumulated y contraction); the backward y transform
-    still runs here.  Requires the all-matmul square-transform path (kind
-    'mat', nsolve == n) with no mesh.
-
-    pallas: run the whole y/z pipeline as 3 Pallas passes
-    (ops/pallas_solve.py) — caller must have checked pallas_eligible()."""
+    of the reference (solver_gpu.f90:80-158)."""
     nz, ny, nx = p.shape
-    if pallas and alpha is not None and hints is None and not pre_xformed_xy:
-        # Helmholtz (I + alpha*L) variant of the aliased pipeline: the CN
-        # viscous solves of the full-3D implicit-diffusion path
-        # (main.f90:423-443).  Same three in-place passes; the z stage is
-        # the Thomas sweep on the alpha-scaled rows (tridiag a*alpha,
-        # b*alpha+1, c*alpha with diag shift lamxy*alpha — never singular),
-        # with the qz face-staggered Dirichlet tail passed through.
-        from .ops import pallas_solve as ps
-        assert not (pre_xformed_x or skip_bwd_x)
-        assert pallas_helmholtz_eligible(sv, p.shape, p.dtype.itemsize)
-        xyf = np.asarray(sv.trx.fwd_mat).T.copy()
-        xyb = np.asarray(sv.trx.bwd_mat).T.copy()
-        a2, b2, c2 = sv.a * alpha, sv.b * alpha + 1.0, sv.c * alpha
-        lamy2, lamx2 = sv.lamy * alpha, sv.lamx * alpha
-        body = ps.apply_y(p, sv.try_.fwd_mat, alias=True, MxT=xyf,
-                          interpret=pallas_interpret)
-        if sv.bcz == 'PP':
-            body = ps.apply_thomas_periodic_z(
-                body, a2, b2, c2, lamy2, lamx2, pin_singular=False,
-                tol=0.0, interpret=pallas_interpret)
-        else:
-            body = ps.apply_thomas_z(
-                body, a2, b2, c2, lamy2, lamx2, pin_singular=False,
-                tol=0.0, interpret=pallas_interpret,
-                n_solve=nz - sv.qz if sv.qz else None)
-        return ps.apply_y(body, sv.try_.bwd_mat, alias=True, MxT=xyb,
-                          interpret=pallas_interpret)
-    if pallas and alpha is None and hints is None and not pre_xformed_xy:
-        assert pre_xformed_x == skip_bwd_x and \
-            pallas_eligible(sv, p.shape, p.dtype.itemsize)
-        import os as _os
-        from .ops import pallas_solve as ps
-        # Aliased 3-pass pipeline: all passes share the native (nz, ny, nx)
-        # layout so each runs IN PLACE (input_output_aliases -> ~2x
-        # streaming bandwidth, tools/solve_probe6.py).  Without the
-        # kernel-side x fusion (pre_xformed_x=False: triperiodic / impdiff
-        # / WMLES / duct / cavity classes) the x operator matmuls ride the
-        # same two passes as one extra flat (tz*ny, nx) MXU dot each — the
-        # full x+y transform still costs ONE pass of HBM traffic per side.
-        # z stage: O(nz) in-VMEM Thomas sweep for non-periodic z (2.09 ->
-        # 1.31 ms/solve at 512x256x256 f32, tools/solve_probe7.py);
-        # aliased eigen matmuls for periodic z.
-        xyf = None if pre_xformed_x else np.asarray(sv.trx.fwd_mat).T.copy()
-        xyb = None if skip_bwd_x else np.asarray(sv.trx.bwd_mat).T.copy()
-        body = ps.apply_y(p, sv.try_.fwd_mat, alias=True, MxT=xyf,
-                          interpret=pallas_interpret)
-        # z-stage pick (round 5, measured on TPU): the O(nz) in-kernel
-        # Thomas sweep wins at large nz (512x256x256: solve 2.09 -> 1.31
-        # ms) where the eig stage's two (nz, nz) matmuls dominate, but
-        # LOSES at the 256-class (triperiodic 0.2262 vs 0.2075
-        # ns/cell/substep: the sweep's nz sequential steps over small
-        # (ty, txn) slabs vectorize poorly while the MXU absorbs the
-        # smaller matmuls easily).  Default: Thomas from nz >= 384;
-        # CALES_PSOLVE_THOMAS=1 / CALES_NO_PSOLVE_THOMAS=1 force it
-        # on / off
-        want_thomas = (nz >= 384
-                       or _os.environ.get('CALES_PSOLVE_THOMAS', '') == '1')
-        if (_os.environ.get('CALES_NO_PSOLVE_THOMAS', '') != '1'
-                and want_thomas
-                and ps.thomas_z_tiles(nz, ny, nx, p.dtype.itemsize)
-                and (sv.bcz != 'PP' or nz >= 3)):
-            lam_scale = float(np.abs(sv.lamx).max() + np.abs(sv.lamy).max())
-            tol = np.finfo(np.dtype(p.dtype)).eps * lam_scale * 4.0
-            if sv.bcz == 'PP':
-                body = ps.apply_thomas_periodic_z(
-                    body, sv.a, sv.b, sv.c, sv.lamy, sv.lamx,
-                    pin_singular=True, tol=tol,
-                    interpret=pallas_interpret)
-            else:
-                body = ps.apply_thomas_z(
-                    body, sv.a, sv.b, sv.c, sv.lamy, sv.lamx,
-                    pin_singular=sv.bcz == 'NN', tol=tol,
-                    interpret=pallas_interpret)
-        else:
-            scale = float(np.abs(sv.lamz).max() + np.abs(sv.lamx).max()
-                          + np.abs(sv.lamy).max())
-            tol = np.finfo(np.dtype(p.dtype)).eps * scale * 4.0
-            body = ps.apply_z_eig(body, sv.zVl, sv.zVr, sv.lamz, sv.lamy,
-                                  sv.lamx, tol, alias=True,
-                                  interpret=pallas_interpret)
-        return ps.apply_y(body, sv.try_.bwd_mat, alias=True, MxT=xyb,
-                          interpret=pallas_interpret)
     sx, sy = sv.trx.nsolve, sv.try_.nsolve
-    if pre_xformed_xy:
-        pre_xformed_x = True
-    if pre_xformed_x or skip_bwd_x:
-        assert (sv.trx.kind == 'mat' and sx == nx and hints is None), \
-            'x-transform fusion needs the square all-matmul path'
-    if pre_xformed_xy:
-        assert sv.try_.kind == 'mat' and sy == ny
     tail_x = p[..., sx:]
     body = p[..., :sx]
     tail_y = body[:, sy:, :]
     body = body[:, :sy, :]
 
     # forward transforms: x (axis -1) then y.  When both directions are
-    # operator matrices (the TPU default) and no mesh is attached, the y
-    # stages run in a (z, x, y) transposed layout with ONE explicit
-    # transpose each way — y-minor matmuls without the per-stage
-    # moveaxis round trips (2 fewer relayout passes per solve)
+    # operator matrices and no mesh is attached, the y stages run in a
+    # (z, x, y) transposed layout with ONE explicit transpose each way —
+    # y-minor matmuls without the per-stage moveaxis round trips
     both_mat = (sv.trx.kind == 'mat' and sv.try_.kind == 'mat'
-                and hints is None and not pre_xformed_xy)
-    if hints is not None:
-        body = hints.x_local(body)
-    if not pre_xformed_x:
-        body = tr.fwd(sv.trx, body, axis=-1)
+                and hints is None)
+    # on a mesh each transform sits between two identical sharding
+    # constraints that keep its own axis local: GSPMD then never partitions
+    # the transform itself (its distributed-FFT rewrite breaks on the
+    # unevenly split nx//2+1 spectral axis)
+    ident = lambda a: a
+    hx = hints.x_local if hints is not None else ident
+    hy = hints.y_local if hints is not None else ident
+    hz = hints.z_local if hints is not None else ident
+    body = hx(tr.fwd(sv.trx, hx(body), axis=-1))
     x_was_fft = sv.trx.kind == 'fft'
-    if hints is not None:
-        body = hints.y_local(body)
     if both_mat:
         body = jnp.swapaxes(body, 1, 2)          # (z, x, y)
         body = tr.fwd(sv.try_, body, axis=-1)
-    elif not pre_xformed_xy:
-        body = tr.fwd(sv.try_, body, axis=-2)
+    else:
+        body = hy(tr.fwd(sv.try_, hy(body), axis=-2))
     y_was_rfft = (sv.try_.kind == 'fft') and not x_was_fft
-    if hints is not None:
-        body = hints.z_local(body)
+    body = hz(body)
 
     # eigenvalue grids matching the spectral shape; assembled in-trace from
     # the 1D profiles (a precomputed 2D/3D grid would inline as a huge literal)
-    rdt0 = body.real.dtype if jnp.iscomplexobj(body) else body.dtype
+    rdt = body.real.dtype if jnp.iscomplexobj(body) else body.dtype
     lamx_np = sv.lamx[: nx // 2 + 1] if x_was_fft else sv.lamx
     lamy_np = sv.lamy[: ny // 2 + 1] if y_was_rfft else sv.lamy
     if both_mat:
         # spectral layout is (z, kx, ky)
-        lamxy = (jnp.asarray(lamx_np, dtype=rdt0)[:, None]
-                 + jnp.asarray(lamy_np, dtype=rdt0)[None, :])
+        lamxy = (jnp.asarray(lamx_np, dtype=rdt)[:, None]
+                 + jnp.asarray(lamy_np, dtype=rdt)[None, :])
     else:
-        lamxy = (jnp.asarray(lamy_np, dtype=rdt0)[:, None]
-                 + jnp.asarray(lamx_np, dtype=rdt0)[None, :])
+        lamxy = (jnp.asarray(lamy_np, dtype=rdt)[:, None]
+                 + jnp.asarray(lamx_np, dtype=rdt)[None, :])
+    lam_scale = float(np.abs(lamx_np).max() + np.abs(lamy_np).max())
 
     # z-direction solve with modified-wavenumber diagonal shift
     qz = sv.qz
-    zbody = body[: nz - qz]
-    rdt = zbody.real.dtype if jnp.iscomplexobj(zbody) else zbody.dtype
-    if sv.zsolver == 'eig':
-        # matrix diagonalization method: two MXU matmuls along z instead of a
-        # sequential Thomas sweep (see _z_eigendecomposition)
-        Vl = jnp.asarray(sv.zVl, dtype=rdt)
-        Vr = jnp.asarray(sv.zVr, dtype=rdt)
-        lamz_j = jnp.asarray(sv.lamz, dtype=rdt)
-        lam3 = lamz_j[:, None, None] + lamxy[None, :, :]
-        if alpha is not None:
-            den = lam3 * alpha + 1.0
-            inv = 1.0 / den
-        else:
-            # project out the (exactly) singular constant mode instead of the
-            # reference's eps-regularized pivot (solver.f90:165-169)
-            scale = float(np.abs(sv.lamz).max()
-                          + np.abs(lamx_np).max() + np.abs(lamy_np).max())
-            tol = np.finfo(np.dtype(rdt)).eps * scale * 4.0
-            inv = jnp.where(jnp.abs(lam3) > tol, 1.0 / lam3, 0.0)
-        # f32 -> bf16x3 passes; divergence-validated like the transform
-        # matmuls (ops/transforms._matmul_axis); f64 stays full precision
-        prec = (jax.lax.Precision.HIGH if rdt == jnp.float32
-                else jax.lax.Precision.HIGHEST)
-        hat = jnp.tensordot(Vl, zbody, axes=(1, 0), precision=prec)
-        hat = hat * inv
-        zsol = jnp.tensordot(Vr, hat, axes=(1, 0), precision=prec)
-        zsol = zsol.astype(zbody.dtype)
-    else:
-        a, b, c = sv.a, sv.b, sv.c
-        lam = lamxy
-        if alpha is not None:
-            a = a * alpha
-            b = b * alpha + 1.0
-            c = c * alpha
-            lam = lamxy * alpha
-        lam_j = jnp.asarray(lam, dtype=rdt)
-        # eps pivots only for the exactly singular pure-Poisson mode
-        reg = alpha is None
-        if sv.bcz == 'PP':
-            zsol = thomas_periodic(a, b, c, zbody, lam=lam_j, regularize=reg)
-        else:
-            zsol = thomas(a[: nz - qz], b[: nz - qz], c[: nz - qz], zbody,
-                          lam=lam_j, regularize=reg)
+    zsol = _z_stage(sv, body[: nz - qz], lamxy, lam_scale, alpha)
     body = jnp.concatenate([zsol, body[nz - qz:]], axis=0) if qz else zsol
 
     # inverse transforms: y then x
-    if hints is not None:
-        body = hints.y_local(body)
     if both_mat:
         body = tr.bwd(sv.try_, body, axis=-1, n=sy, real_out=not x_was_fft)
         body = jnp.swapaxes(body, 1, 2)          # back to (z, y, x)
     else:
-        body = tr.bwd(sv.try_, body, axis=-2, n=sy, real_out=not x_was_fft)
-    if hints is not None:
-        body = hints.x_local(body)
-    if not skip_bwd_x:
-        body = tr.bwd(sv.trx, body, axis=-1, n=sx, real_out=True)
+        body = hy(tr.bwd(sv.try_, hy(body), axis=-2, n=sy,
+                         real_out=not x_was_fft))
+    body = hx(tr.bwd(sv.trx, hx(body), axis=-1, n=sx, real_out=True))
     body = body.real if jnp.iscomplexobj(body) else body
     body = body.astype(p.dtype)
     if hints is not None:
@@ -513,70 +265,69 @@ def solve(sv: DirectSolver, p, alpha=None, hints=None,
     return body
 
 
-def solve_z_only(sv: DirectSolver, p, alpha, pallas=False,
-                 pallas_interpret=False, shift=None, bc_planes=None):
+def _z_stage(sv: DirectSolver, zbody, lamxy, lam_scale, alpha):
+    """z solve of the (nzs, ...) spectral RHS with the diagonal shift
+    `lamxy` (None: no x/y shift).  alpha None: Poisson, whose pure
+    Neumann/periodic mode is exactly singular; else the Helmholtz operator
+    (I + alpha*L), never singular."""
+    nzs = zbody.shape[0]
+    rdt = zbody.real.dtype if jnp.iscomplexobj(zbody) else zbody.dtype
+    if sv.zsolver == 'eig':
+        # matrix diagonalization method: two dense (nz, nz) contractions
+        # along z instead of a sequential sweep (see _z_eigendecomposition)
+        lam3 = jnp.asarray(sv.lamz, dtype=rdt)[:, None, None]
+        if lamxy is not None:
+            lam3 = lam3 + lamxy[None, :, :]
+        if alpha is not None:
+            inv = 1.0 / (lam3 * alpha + 1.0)
+        else:
+            # project out the (exactly) singular constant mode instead of the
+            # reference's eps-regularized pivot (solver.f90:165-169)
+            scale = float(np.abs(sv.lamz).max()) + lam_scale
+            tol = np.finfo(np.dtype(rdt)).eps * scale * 4.0
+            inv = jnp.where(jnp.abs(lam3) > tol, 1.0 / lam3, 0.0)
+        hat = tr.contract_leading(sv.zVl, zbody) * inv
+        return tr.contract_leading(sv.zVr, hat).astype(zbody.dtype)
+    a, b, c = sv.a, sv.b, sv.c
+    lam = lamxy
+    if alpha is not None:
+        a, b, c = a * alpha, b * alpha + 1.0, c * alpha
+        lam = None if lamxy is None else lamxy * alpha
+    periodic = sv.bcz == 'PP'
+    if sv.zimpl == 'sweep':
+        from .ops import zsweep
+        # the singular Poisson mode (pure Neumann or periodic z at
+        # lamxy = 0) is pinned to a zero gauge instead of eps pivots
+        pin_tol = None
+        if alpha is None and sv.bcz in ('NN', 'PP'):
+            pin_tol = np.finfo(np.dtype(rdt)).eps * lam_scale * 4.0
+        return zsweep.thomas_z(zbody, a[:nzs], b[:nzs], c[:nzs], lam,
+                               pin_tol=pin_tol, periodic=periodic)
+    # eps pivots only for the exactly singular pure-Poisson mode
+    reg = alpha is None
+    if periodic:
+        return thomas_periodic(a, b, c, zbody, lam=lam, regularize=reg)
+    return thomas(a[:nzs], b[:nzs], c[:nzs], zbody, lam=lam, regularize=reg)
+
+
+def z_solver_name(sv: DirectSolver) -> str:
+    if sv.zsolver == 'eig':
+        return 'eig (dense z eigenbasis contractions)'
+    return f'thomas ({sv.zimpl})'
+
+
+def solve_z_only(sv: DirectSolver, p, alpha, bc_planes=None):
     """z-implicit-only Helmholtz solve (I + alpha*Lz) p = rhs with no x/y
     transforms (solver_gaussel_z, solver.f90:182-233; the _IMPDIFF_1D path).
 
-    pallas: one aliased in-place Pallas Thomas pass
-    (ops/pallas_solve.apply_thomas_helmholtz_z) instead of the two (nz, nz)
-    eigen matmul passes — the caller must be on a single device with a
-    TPU-f32 (or interpret) kernel path.
-
-    shift: traced constant added to the RHS inside the pass — the folded
-    bulk-forcing add (reference order: u += f THEN solve, rk.f90:197-222 +
-    main.f90:423-431; adding f to the RHS is identical and saves the
-    full-field read+write the separate add would cost).
-
     bc_planes: optional ((ny, nx) lo, hi) z-face RHS boundary planes
-    (updt_rhs_b) added to rows 0 / (nz - qz - 1) — in-register on the
-    Pallas path (saving the host-side dynamic-update-slice adds), as
-    .at[].add on the fallback paths."""
+    (updt_rhs_b) added to rows 0 / (nz - qz - 1)."""
     nz = p.shape[0]
     qz = sv.qz
-    if pallas and sv.bcz != 'PP':
-        from .ops import pallas_solve as ps
-        if ps.thomas_z_tiles(nz, p.shape[1], p.shape[2],
-                             p.dtype.itemsize) and p.shape[2] % 128 == 0:
-            n = nz - qz
-            a = sv.a[:n] * alpha
-            b = sv.b[:n] * alpha + 1.0
-            c = sv.c[:n] * alpha
-            bkw = {}
-            if bc_planes is not None:
-                bkw = dict(bc_lo=bc_planes[0], bc_hi=bc_planes[1])
-            # the face-staggered Dirichlet tail (qz) passes through (and
-            # takes the shift) IN-KERNEL: no host-side slice+concat passes
-            return ps.apply_thomas_helmholtz_z(
-                p, a, b, c, interpret=pallas_interpret, shift=shift,
-                n_solve=n if qz else None, **bkw)
     if bc_planes is not None:
         p = p.at[0].add(jnp.asarray(bc_planes[0], p.dtype))
         p = p.at[nz - qz - 1].add(jnp.asarray(bc_planes[1], p.dtype))
-    zbody = p[: nz - qz]
-    if shift is not None:
-        zbody = zbody + shift
-        p = p if qz == 0 else jnp.concatenate(
-            [zbody, p[nz - qz:] + shift], axis=0)
-    if sv.zsolver == 'eig':
-        rdt = zbody.dtype
-        Vl = jnp.asarray(sv.zVl, dtype=rdt)
-        Vr = jnp.asarray(sv.zVr, dtype=rdt)
-        inv = 1.0 / (jnp.asarray(sv.lamz, dtype=rdt) * alpha + 1.0)
-        prec = (jax.lax.Precision.HIGH if rdt == jnp.float32
-                else jax.lax.Precision.HIGHEST)
-        hat = jnp.tensordot(Vl, zbody, axes=(1, 0), precision=prec)
-        hat = hat * inv[:, None, None]
-        zsol = jnp.tensordot(Vr, hat, axes=(1, 0), precision=prec).astype(rdt)
-    else:
-        a = sv.a * alpha
-        b = sv.b * alpha + 1.0
-        c = sv.c * alpha
-        if sv.bcz == 'PP':
-            zsol = thomas_periodic(a, b, c, zbody, regularize=False)
-        else:
-            zsol = thomas(a[: nz - qz], b[: nz - qz], c[: nz - qz], zbody,
-                          regularize=False)
+    zsol = _z_stage(sv, p[: nz - qz], None, 0.0, alpha)
     return jnp.concatenate([zsol, p[nz - qz:]], axis=0) if qz else zsol
 
 

@@ -18,7 +18,7 @@ from .ops.stencil import _sh, _zb, bulk_mean, scalar_rhs_core
 def scalar_rhs(up, vp, wp, sp, alpha, dxi, dyi, dzci, dzfi):
     """Advection-diffusion RHS for a cell-centered scalar (scal.f90:14-51).
     alpha: molecular diffusivity.  All inputs padded.  The discretization
-    lives in stencil.scalar_rhs_core (shared with the Pallas kernel)."""
+    lives in stencil.scalar_rhs_core."""
     nz = up.shape[0] - 2
     metrics = {
         'dzci_c': _zb(dzci, 1, nz + 1),

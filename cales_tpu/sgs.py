@@ -31,7 +31,7 @@ def extrapolate(p, iface, flags, factors):
     (the component's own face direction, skipped); flags[(ib,idir)]: bool;
     factors: (f_lo_z, f_hi_z) z-direction stretching factors.
 
-    Ghost faces are re-attached by slice+concatenate (fusible on TPU) rather
+    Ghost faces are re-attached by slice+concatenate (fusible) rather
     than .at[].set (full-array dynamic-update-slice); see ops/boundary.py.
     """
     f0, f1 = factors
@@ -86,9 +86,9 @@ class SGSSetup:
         self.fac_lwm = (dzc[0] * dzci[1], dzc[nz] * dzci[nz - 1])
         # filter width Delta = (dx dy dzf)^(1/3) (sgs.f90:148)
         self.delta = (cfg.dl[0] * cfg.dl[1] * grid.dzf[1:nz + 1]) ** (1.0 / 3.0)
-        # van Driest wall-distance profiles as *1D* arrays, broadcast inside
-        # the kernel (a precomputed 3D field would be inlined as a megabyte
-        # HLO literal and wreck TPU compile time)
+        # van Driest wall-distance profiles as *1D* arrays, broadcast in
+        # the step (a precomputed 3D field would be inlined as a megabyte
+        # HLO literal and wreck compile time)
         dl = cfg.dl
         i = np.arange(1, nx + 1)
         j = np.arange(1, ny + 1)

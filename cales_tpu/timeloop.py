@@ -1,6 +1,6 @@
 """Time integration: RK3 + pressure projection, fully jitted per step.
 
-TPU-native rebuild of the reference hot loop:
+JAX rebuild of the reference hot loop:
   * RK3 low-storage update      /root/reference/src/rk.f90:17-121
   * substep orchestration       /root/reference/src/main.f90:417-507
   * bulk-velocity forcing       rk.f90:197-222, mom.f90:311-335
@@ -9,7 +9,9 @@ TPU-native rebuild of the reference hot loop:
 
 One full time step (3 RK substeps, each with momentum RHS, projection solve,
 BC fills, SGS update) compiles to a single XLA program; the Python driver only
-handles cadenced I/O and dt refresh (main.f90:405-619).
+handles cadenced I/O and dt refresh (main.f90:405-619).  Each substep follows
+the reference's sequence (SURVEY §3.2): momentum + RK update, bulk forcing,
+CN Helmholtz solves, projection, SGS.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from .grid import Grid
 from . import poisson
 from .ops import boundary as bnd
 from .ops import stencil as st
+from .ops import transforms as tr
+from .runtime import default_device
 from . import sgs as sgsmod
 from . import wallmodel as wm
 from . import scal as scalmod
@@ -41,17 +45,18 @@ class State(NamedTuple):
     istep: Any
     s: Any = None         # optional passive scalar (scal.f90)
     dsdt_old: Any = None  # previous-substep scalar RHS (rk.f90:149-150)
-    zq: Any = None        # Pallas-path cache: (3, ny, nx) z-edge stacks
-                          # (ue, ve, we) of the current velocity — the
-                          # post-correc ghost fill (ops/boundary.zedge_*)
 
 
 class Simulation:
     """Static solver setup + jitted step function.
 
-    mesh: optional jax.sharding.Mesh ('gy','gx') for multi-chip domain
+    mesh: optional jax.sharding.Mesh ('gy','gx') for multi-device domain
     decomposition; fields shard (z, y:gy, x:gx) and the Poisson stages
     reshard via constraint hints (parallel/mesh.py).
+
+    The step is traced in the configuration's own precision whatever the
+    process-wide ``jax_enable_x64`` flag says, so float32 and float64
+    Simulations can share one process.
     """
 
     def __init__(self, cfg: Config, grid: Grid, mesh=None):
@@ -61,14 +66,19 @@ class Simulation:
         self.cfg = cfg
         self.grid = grid
         self.dtype = cfg.np_dtype
+        self.device = default_device(mesh)
         self.cbcvel = effective_cbcvel(cfg)
         self.cbcpre = tuple((cfg.cbcpre[0][d], cfg.cbcpre[1][d]) for d in range(3))
         cbcpre_pairs = tuple(cfg.cbc_pre(d) for d in range(3))
         nx, ny, nz = cfg.ng
 
         # Poisson solver for the pressure correction (initsolver, main.f90:312)
+        platform = self.device.platform
+        sharded = mesh is not None
+        zsolver = poisson.resolve_zsolver(cfg.zsolver, platform, sharded)
         self.solver_p = poisson.make_solver(cfg, grid, cbcpre_pairs, ('c', 'c', 'c'),
-                                            zsolver=cfg.zsolver)
+                                            zsolver=zsolver, platform=platform,
+                                            sharded=sharded)
         # static BC value planes (initbc, bound.f90:726-806)
         by_dir = lambda vals: tuple(tuple(vals[ib][idir] for ib in range(2))
                                     for idir in range(3))
@@ -80,30 +90,23 @@ class Simulation:
         self.bcv_vals = bnd.make_bc_values(cfg.ng, bcvel_by_dir(1), self.dtype)
         self.bcw_vals = bnd.make_bc_values(cfg.ng, bcvel_by_dir(2), self.dtype)
         # wall-model state
-        import os as _os
         self.has_wm = any(cfg.lwm[ib][d] != 0 for ib in range(2) for d in range(3))
         self.index_wm = wm.find_index_wm(cfg, grid) if self.has_wm else None
         # y/z-only wall models with scalar static BCs: update the wm
-        # Neumann planes from sliced rows instead of full-field pads (the
-        # pad cost ~6 field passes/substep on the kernel path).  The wall
-        # model never reads dynamically-filled ghosts — the generic path
-        # pads with the STATIC values before updating — so row slices
+        # Neumann planes from sliced rows instead of full-field pads (four
+        # rows are read; the pad would write three whole fields).  The
+        # wall model never reads dynamically-filled ghosts — the generic
+        # path pads with the STATIC values before updating — so row slices
         # x/y- (z walls) or x/z-filled (y walls) with the static scalars
         # are bit-identical inputs.
         scalar_bcs = all(
             np.isscalar(b[idir][ib]) or np.ndim(b[idir][ib]) == 0
             for b in (self.bcu_vals, self.bcv_vals, self.bcw_vals)
             for idir in range(3) for ib in range(2))
-        self._scalar_bcs = scalar_bcs
         self._wm_fast = (
             self.has_wm
             and not any(cfg.lwm[ib][0] != 0 for ib in range(2))
-            and scalar_bcs
-            and _os.environ.get('CALES_NO_WM_FAST', '') != '1')
-        # z-only variant (gates the fused correc+smag 'E' recipes)
-        self._wm_z_fast = (
-            self._wm_fast
-            and not any(cfg.lwm[ib][1] != 0 for ib in range(2)))
+            and scalar_bcs)
         # pressure BC RHS planes (cmpt_rhs_b, main.f90:317)
         self.rhsb_p = poisson.rhs_bound_planes(
             cfg, grid, self.cbcpre, ('c', 'c', 'c'),
@@ -117,7 +120,8 @@ class Simulation:
                             for d in range(3))
                 self.solver_vel.append(
                     poisson.make_solver(cfg, grid, cbc, self.c_or_f[ivel],
-                                        zsolver=cfg.zsolver))
+                                        zsolver=zsolver, platform=platform,
+                                        sharded=sharded))
         # SGS setup
         self.sgs_setup = sgsmod.SGSSetup(cfg, grid, self.cbcvel)
         # bulk-forcing volume weights (main.f90:282-283)
@@ -125,415 +129,11 @@ class Simulation:
         self.gvr_c = (cfg.dl[0] * cfg.dl[1] * grid.dzc[1:nz + 1] / vol).astype(self.dtype)
         self.gvr_f = (cfg.dl[0] * cfg.dl[1] * grid.dzf[1:nz + 1] / vol).astype(self.dtype)
 
-        # pin the (z-major, x-minor) layout on single-device accelerator runs:
-        # XLA's layout assignment otherwise picks y-minor and inserts relayout
-        # copies around the FFT stages (~15% of step time at 512^3-class)
+        # pin the (z-major, x-minor) layout on single-device GPU runs:
+        # 2.5% faster per channel-LES step on an H100 (PERF.md)
         self._use_layout_pin = (mesh is None
-                                and jax.default_backend() not in ('cpu',))
+                                and self.device.platform == 'gpu')
 
-        # Pallas mega-kernel eligibility (ops/pallas_kernels.py): the hot
-        # stencils read each field from HBM once instead of once per shifted
-        # slice (measured 68 -> ~18 passes/substep over momentum+RK)
-        import os as _os
-        from .ops import pallas_kernels as pk
-        self._pallas_interpret = _os.environ.get(
-            'CALES_PALLAS_INTERPRET', '') == '1'
-        on_tpu = jax.default_backend() == 'tpu'
-        self._fallback_reason = ''
-
-        def _why(msg):
-            if not self._fallback_reason:
-                self._fallback_reason = msg
-
-        def _dir_periodic(d):
-            return (all(cfg.cbc_vel(d, iv) == 'PP' for iv in range(3))
-                    and cfg.cbc_pre(d) == 'PP'
-                    and cfg.cbcsgs[0][d] + cfg.cbcsgs[1][d] == 'PP')
-        x_periodic = _dir_periodic(0)
-        y_periodic = _dir_periodic(1)
-        # non-periodic y (duct/cavity class) runs the kernels with the
-        # ye-bundle ghost-row fixes; wall-modeled y/z faces (duct WMLES)
-        # are carried the same way — the bundles are built from the
-        # wall-model-updated Neumann planes each substep (_ybundle_vel
-        # bcs=).  Sharded: 1D (gy) meshes combine the bundle fixes with
-        # the halo strips (the wall fixes are gated per shard, fused_mom_rk
-        # ywf); 2D (gx>1) meshes patch the xe ghost-column packs' wall rows
-        # from the bundles host-side (_xe_wall_rows / _halo_y_patched)
-        self._ywalled = not y_periodic
-        # non-periodic x (inflow/outflow, developing-channel class) runs
-        # the kernels with host-built x-ghost-column bundles riding the xe
-        # edge-lane roll-fix protocol (ops/boundary.xedge_*) — no ppermute,
-        # the columns come from the BC recipes; u's wall-face rewrite slot
-        # is patched into the kernel-input copy host-side.  Scalar static
-        # BCs, no wall model (v1 scope).  Meshes: 1D (gy) slabs (periodic
-        # y: the y-sharded bundles ride the strips window mode with their
-        # own cyclic-ppermute 8-row packs; y-walled: the xye plumbing
-        # passes them with the ye corner sections) and 2D (gy,gx) pencils
-        # (gx-edge shards' xe pack wall lanes replaced from the host-built
-        # recipe bundles, _xe_wall_patch / _xe_packs_ywalled_gx).
-        self._xwalled = not x_periodic
-        # mesh coverage of the xedge protocol:
-        # gx == 1: periodic y (cyclic bundle strips are exact) or
-        # y-walled (the replicated ye bundle carries the xe corner
-        # section and the in-kernel xe_ybase fixes are ywf-gated).
-        # gx > 1: the ppermute'd xe packs carry valid interior neighbor
-        # columns on interior shards; the gx-edge shards' wall-ghost
-        # lanes are replaced from the host-built recipe bundles
-        # (_xe_wall_patch) — with y walls their y-ghost rows come from
-        # the ye bundles' xe corner section (_xe_packs_ywalled_gx)
-        # x-walled + wall model (round 5): a z-ONLY wall model composes
-        # with the xedge protocol — the xe column bundles are built from
-        # the wm-updated Neumann planes each substep exactly as the ye
-        # bundles are (boundary._corner_cols slices the planes' x-ghost
-        # columns for the z-corner stacks).  x-wall wall models would
-        # need wm-built columns, and y-wall wall models plane-valued
-        # recipes in the xye corner section — both stay on the XLA path.
-        wm_z_only = (self.has_wm
-                     and not any(cfg.lwm[ib][d] != 0
-                                 for ib in range(2) for d in (0, 1)))
-        # plane-valued STATIC BCs (inflow profiles etc., round 5) ride the
-        # same bundle builders as the wall-model planes (_bc_row /
-        # _corner_rows / _corner_cols crop them), so they only exclude the
-        # x+y-walled corner sections (_xye_section bakes scalars)
-        x_wall_ok = (self._xwalled
-                     and (scalar_bcs or not self._ywalled)
-                     and (not self.has_wm
-                          or (wm_z_only and not self._ywalled)))
-        xy_periodic = x_periodic or x_wall_ok
-        if self._xwalled and not x_wall_ok:
-            _why('non-periodic x BCs with an x/y wall model or '
-                 'plane-valued BC values at x+y walls (xedge path: z-only '
-                 'wm; corner sections bake scalars)')
-        nx, ny, nz = cfg.ng
-        # kernels under a mesh: per-shard Pallas under shard_map.  y halos
-        # arrive as ppermute 8-row strips (y_ext mode); with gx > 1 the
-        # in-kernel x rolls are corrected at the shard-edge lanes from a
-        # packed ppermute'd ghost-column bundle (pallas_kernels xe protocol)
-        self._kernel_sharded = False
-        self._gx_sharded = False
-        ny_local, nx_local = ny, nx
-        if mesh is not None:
-            gx = dict(zip(mesh.axis_names, mesh.devices.shape)).get('gx', 1)
-            gy = dict(zip(mesh.axis_names, mesh.devices.shape)).get('gy', 1)
-            if (ny % gy == 0 and ny // gy >= 16 and nx % gx == 0
-                    and (nx // gx) % 128 == 0):
-                ny_local = ny // gy
-                nx_local = nx // gx
-                self._kernel_sharded = True
-                self._gx_sharded = gx > 1
-            else:
-                _why(f'mesh ({gy},{gx}) vs ng: need ny%gy==0, ny//gy>=16, '
-                     f'(nx//gx)%128==0 (ny={ny}, nx={nx})')
-        # implicit-diffusion split mode for the kernel (mom.f90:277-303)
-        self._mom_split = (None if not cfg.impdiff
-                           else ('1d' if cfg.impdiff_1d else 'xy+z'))
-        # gate with the SAME pick function/budget fused_mom_rk uses so a
-        # gated shape can never fail inside the wrapper (ADVICE r2)
-        tiles_ok = (nx_local % 128 == 0 and ny_local % 8 == 0 and
-                    pk.mom_tiles(nz, ny_local, np.dtype(self.dtype).itemsize,
-                                 nx_local,
-                                 split=self._mom_split) is not None)
-        if self._kernel_sharded and (self.solver_p.trx.kind == 'fft'
-                                     or self.solver_p.try_.kind == 'fft'):
-            # the CPU rfft path under the shard_map+GSPMD combination trips
-            # an XLA c64/c128 verifier bug; the TPU solve is all-matmul
-            # (ptransform 'auto'), so this only downgrades CPU dev runs
-            self._kernel_sharded = False
-            _why('sharded kernels need the all-matmul solve (fft stage '
-                 'present)')
-        if not cfg.use_pallas:
-            _why('use_pallas=False in config')
-        # passive scalar: fused into the momentum kernel on the single-chip
-        # xy-periodic path (its own window + dsdt carry); other modes fall
-        # back to the XLA path
-        self._scal_kernel_ok = (
-            cfg.scalar
-            and (mesh is None or self._kernel_sharded)
-            # wall-modeled faces are fine: the wm only rewrites the
-            # VELOCITY ghost planes (which reach the kernel through the
-            # zedge stacks / ye bundles exactly as without a scalar) —
-            # the scalar's own ghosts stay its static cbcscal recipes
-            # (the reference ships scal.f90 unwired, so the XLA path is
-            # the semantic oracle here; parity-tested in
-            # test_scalar_wmles_kernel_matches_xla)
-            # x-walled configs carry the scalar's x ghosts as host-built
-            # xe columns (any static letter, xedge_scalar); x-periodic
-            # ones have no xe bundle, so the scalar must be x-periodic.
-            # Scalar + x AND y walls rides the xye corner-section protocol
-            # (_xye_entries has_scal) — single-chip + 1D (gy) slab meshes
-            # (round 5; the bundle plumbing is stack-count-generic, only
-            # the gx>1 xe-pack wall patches are not scalar-aware yet).
-            and (all(cfg.cbcscal[ib][0] == 'P' for ib in range(2))
-                 if not self._xwalled
-                 else (not self._ywalled or not self._gx_sharded))
-            # y-walled configs carry the scalar's wall ghosts in the ye
-            # bundle (any letter); with periodic-y velocity there is no
-            # bundle, so the scalar must be y-periodic too
-            and (self._ywalled
-                 or all(cfg.cbcscal[ib][1] == 'P' for ib in range(2)))
-            and pk.mom_tiles(nz, ny_local, np.dtype(self.dtype).itemsize,
-                             nx_local, split=self._mom_split,
-                             has_scal=True) is not None)
-        if cfg.scalar and not self._scal_kernel_ok:
-            _why('scalar transport (non-periodic-x scalar BCs without x '
-                 'walls, x+y walls on a mesh, or no VMEM tiling with the '
-                 'scalar window)')
-        if not xy_periodic:
-            _why('non-periodic x BCs')
-        if not tiles_ok:
-            _why('no VMEM tiling for (nz,ny_local,nx_local)='
-                 f'({nz},{ny_local},{nx_local}) (need nx%128==0, ny%8==0)')
-        if not (on_tpu and cfg.dtype == 'float32' or self._pallas_interpret):
-            _why(f'backend={jax.default_backend()}, dtype={cfg.dtype} '
-                 '(kernels need TPU f32, or CALES_PALLAS_INTERPRET=1)')
-        self.use_pallas_mom = bool(
-            cfg.use_pallas and (mesh is None or self._kernel_sharded)
-            and (not cfg.scalar or self._scal_kernel_ok)
-            and xy_periodic and tiles_ok
-            and (on_tpu and cfg.dtype == 'float32' or self._pallas_interpret))
-        self._kernel_sharded = self._kernel_sharded and self.use_pallas_mom
-        # CN fold (single-chip kernel path ONLY — the XLA path keeps the
-        # reference's explicit dance): the momentum kernel emits the
-        # CN-solve RHS u_RK - 0.5*f12*rd directly — 3 rd output streams +
-        # the caller's 9-pass subtraction elided.  Bulk forcing is then
-        # measured from in-kernel partial sums of the FULL prediction and,
-        # for impdiff_1d, folded into the Thomas solve's RHS shift (zero
-        # extra passes).  w-forcing keeps the unfolded path (no w sums).
-        self._cn_fold = (self.use_pallas_mom and self._mom_split is not None
-                         and mesh is None and not cfg.is_forced[2]
-                         and _os.environ.get('CALES_NO_CN_FOLD', '') != '1')
-        self._cn_shift_forcing = (self._cn_fold and cfg.impdiff_1d
-                                  and (cfg.is_forced[0] or cfg.is_forced[1]))
-        walls_z_only = not any(
-            effective_cbcvel(cfg)[ib][d][d] == 'D' for ib in range(2)
-            for d in (0, 1)) and not any(cfg.lwm[ib][d] != 0 for ib in range(2)
-                                         for d in (0, 1))
-        self.use_pallas_smag = (self.use_pallas_mom and cfg.sgstype == 'smag'
-                                and walls_z_only and not self._xwalled)
-        # single-pass projection+updatep+smag fusion (channel-LES class):
-        # removes the separate smag kernel's window reads (ops/
-        # pallas_kernels.fused_correc_updatep_smag); needs in-kernel z-ghost
-        # synthesis -> scalar-BC non-periodic z, unsharded, explicit, no wm
-        self._fuse_correc_smag = (
-            self.use_pallas_smag and not self._kernel_sharded
-            and mesh is None and not self._ywalled and not cfg.impdiff
-            and (not self.has_wm or self._wm_z_fast)
-            # the in-kernel z-ghost recipes bake SCALAR values (zrec);
-            # plane-valued BCs keep the separate (plane-capable) kernels
-            and self._scalar_bcs
-            and cfg.cbc_vel(2, 0)[0] != 'P'
-            and _os.environ.get('CALES_NO_FUSE_SMAG', '') != '1')
-        if self._fuse_correc_smag:
-            dzc, dzci_g = grid.dzc, grid.dzci
-            # per-face z-ghost recipes for the fused kernel's strain: the
-            # scalar-BC letters, or 'E' (one-sided lwm extrapolation,
-            # sgs.f90:682-767) on wall-modeled faces
-            fac_ex = (float(dzc[0] * dzci_g[1]),
-                      float(dzc[nz] * dzci_g[nz - 1]))
-            dz01 = (float(dzc[0]), float(dzc[nz]))
-
-            def _rec_for(iv, bvals):
-                out = []
-                for ib in range(2):
-                    if cfg.lwm[ib][2] != 0:
-                        out += ['E', fac_ex[ib], 0.0]
-                    else:
-                        out += [self.cbcvel[ib][2][iv],
-                                float(bvals[2][ib]), dz01[ib]]
-                return tuple(out)
-            self._zrec_uv = (_rec_for(0, self.bcu_vals),
-                             _rec_for(1, self.bcv_vals))
-        # momentum+fillps single-pass fusion (explicit channel class): the
-        # projection RHS comes out of the momentum kernel; bulk forcing
-        # along periodic directions cancels in the divergence, so it is
-        # measured from in-kernel partial sums and folded into the
-        # projection kernel instead (pallas_kernels fused_mom_rk docstring)
-        # OPT-IN (CALES_FUSE_FILLPS=1): measured 0.3104 -> 0.3501
-        # ns/cell/substep at 512x256x256 — the single-row j-1 eval + strip
-        # DMA + deeper output pipeline cost more than the separate fillps
-        # kernel's ~1 ms; kept for future tile-shape regimes
-        self._fuse_mom_fillps = (
-            self.use_pallas_mom and self._mom_split is None
-            and mesh is None and not self._ywalled and not self._xwalled
-            and not self.has_wm and self._scalar_bcs
-            and not cfg.scalar
-            and cfg.cbc_vel(2, 2)[0] != 'P' and not cfg.is_forced[2]
-            and _os.environ.get('CALES_FUSE_FILLPS', '') == '1'
-            and pk.mom_tiles(nz, ny_local, np.dtype(self.dtype).itemsize,
-                             nx_local, fuse_fillps=True) is not None)
-        if self._fuse_mom_fillps:
-            dzf = grid.dzf
-            self._zrec_w = (self.cbcvel[0][2][2], float(self.bcw_vals[2][0]),
-                            float(dzf[0]),
-                            self.cbcvel[1][2][2], float(self.bcw_vals[2][1]),
-                            float(dzf[nz]))
-        # deferred bulk forcing (independent of the fillps fusion): the
-        # bulk means come from momentum-kernel partial sums (no separate
-        # reduction pass) and the constants fold into the projection
-        # kernels' fu/fv (no u+f materialization) — forcing along periodic
-        # directions cancels in the divergence, so the projection is
-        # unchanged (rk.f90:197-222 reordered exactly)
-        # y walls included since r3: x-forcing still cancels exactly in
-        # the divergence (constant along the periodic x), and the y-walled
-        # corrector call already folds fu/fv
-        self._defer_forcing = (
-            self.use_pallas_mom and self._mom_split is None
-            and mesh is None
-            # wall-modeled configs defer too (round 4): the wm's hwm-row
-            # sampling gets the traced constant added pre-pad
-            # (_dynamic_bcs fadd=...), and the post-correction wm planes
-            # already recompute from corrected-with-fu rows
-            and (not self.has_wm or getattr(self, '_wm_fast', False))
-            and not cfg.scalar and not cfg.is_forced[2]
-            and not self._xwalled    # cancellation needs periodic x
-            and (cfg.is_forced[0] or cfg.is_forced[1])
-            and not (self._ywalled and cfg.is_forced[1]))
-        need_sums = (self._defer_forcing
-                     or (self._cn_fold
-                         and (cfg.is_forced[0] or cfg.is_forced[1])))
-        self._sum_flags = (bool(cfg.is_forced[0]) and need_sums,
-                           bool(cfg.is_forced[1]) and need_sums)
-        # x-transform fusion: the solve's first/last x operator matmuls run
-        # on the kernels' otherwise-idle MXU (mom emits the RHS x-spectral;
-        # the corrector consumes the solution x-spectral).  Needs both
-        # fusions, the square all-matmul x transform, and statically-zero
-        # pressure BC planes (the zedge/rhs algebra must be value-free so
-        # it commutes with the transform)
-        rhsb_zero = all(
-            isinstance(pl_, (int, float, np.floating, np.ndarray))
-            and np.all(np.asarray(pl_) == 0.0) for pl_ in self.rhsb_p.values())
-        # the fusion rides either the correc+smag kernel or (round 4) the
-        # plain fused_correc_updatep kernel, single-chip: periodic x/y
-        # (triperiodic + impdiff channel classes) and (round 5) y-walled
-        # (duct/cavity/dsmag classes) — the pp y-bundle recipes are
-        # x-pointwise, linear and homogeneous under the bcpre==0 gate
-        # below, so they commute with the x transform: the host applies
-        # them to the spectral pp and inverse-transforms ONLY the bundle
-        # rows (tiny matmuls); the kernel window transform runs before the
-        # accessor's ye ghost-row substitution, which then drops the
-        # transformed wrap-garbage rows at wall tiles.  x-walled stays
-        # out: the xe ghost COLUMNS are not recoverable from spectral pp
-        # without a full-field contraction per column.
-        xop_correc_ok = (
-            self._fuse_correc_smag
-            or (self.use_pallas_mom and mesh is None
-                and not self._xwalled))
-        self._fuse_xop = (
-            xop_correc_ok
-            and self.solver_p.trx.kind == 'mat'
-            and self.solver_p.trx.nsolve == nx and rhsb_zero
-            and all(float(cfg.bcpre[ib][d]) == 0.0
-                    for ib in range(2) for d in range(3))
-            and _os.environ.get('CALES_NO_FUSE_XOP', '') != '1')
-        if self._fuse_xop:
-            self._xopT = self.solver_p.trx.fwd_mat.T.copy()
-            self._xopiT = self.solver_p.trx.bwd_mat.T.copy()
-        # forward-y fusion: the solve's second stage as an accumulated
-        # per-tile contraction in the fillps kernel (revisited output block)
-        # OPT-IN (CALES_FUSE_YOP=1): the revisited-output-block accumulation
-        # kernel hit a pathological Mosaic compile (>35 min) at the bench
-        # shape; parity-tested and kept for future toolchain versions
-        self._fuse_yop = (self._fuse_xop and not self._fuse_mom_fillps
-                          and self.solver_p.try_.kind == 'mat'
-                          and self.solver_p.try_.nsolve == ny
-                          and _os.environ.get('CALES_FUSE_YOP', '') == '1')
-        if self._fuse_yop:
-            self._yopF = self.solver_p.try_.fwd_mat.copy()
-        # Pallas 3-pass solve (ops/pallas_solve.py): the transform + z
-        # pipeline as 3 aliased in-place Pallas passes instead of the ~6
-        # XLA passes (the solve is HBM-bound: tools/solve_bench.py).
-        # With the kernel x fusion the passes see x-spectral in/out;
-        # without it (triperiodic / impdiff / WMLES / duct / cavity) the
-        # x matmuls ride the y passes as flat MXU dots.  Single device
-        # only (the sharded solve keeps the hints/all-to-all path).
-        self.use_pallas_solve = (
-            self.use_pallas_mom and not self._fuse_yop
-            and self.mesh is None
-            and poisson.pallas_eligible(
-                self.solver_p, (nz, ny, nx), np.dtype(self.dtype).itemsize)
-            and _os.environ.get('CALES_NO_PALLAS_SOLVE', '') != '1')
-        # slab-sharded (gy>1, gx=1) kernel path: per-shard aliased Pallas
-        # passes around two explicit all-to-all pencil transposes
-        # (poisson.solve_sharded_pallas)
-        self.use_pallas_solve_sharded = (
-            self._kernel_sharded and not self._gx_sharded
-            and poisson.pallas_sharded_eligible(
-                self.solver_p, (nz, ny, nx),
-                np.dtype(self.dtype).itemsize, self.mesh)
-            and _os.environ.get('CALES_NO_PALLAS_SOLVE', '') != '1')
-        self.use_pallas_dsmag = False
-        self._dsmag_onepass = False
-        self._dsmag_xext = False
-        if (self.use_pallas_mom and cfg.sgstype == 'dsmag'
-                and not self._gx_sharded):
-            # pds.eligible checks the y/z face recipes (wall-extrapolation
-            # or homogeneous-N), covering the duct/cavity class too
-            from .ops import pallas_dsmag as pds
-            self.use_pallas_dsmag = (
-                not self._xwalled      # filters need 2-deep x ghosts
-                and pds.eligible(cfg, self.sgs_setup)
-                and pds.ds_tiles(nz, ny_local, np.dtype(self.dtype).itemsize,
-                                 nx_local) is not None)
-            # single-pass Germano-Lilly kernel (no DS1->DS2 intermediates
-            # in HBM; pallas_dsmag.fused_dsmag_onepass) -- the default when
-            # the shape fits; CALES_DSMAG_TWOPASS=1 falls back to the
-            # 2-pass pipeline (A/B + debugging)
-            self._dsmag_onepass = (
-                self.use_pallas_dsmag
-                and self._dsmag_onepass_vals_ok()
-                and pds.fused_tiles(nz, ny_local,
-                                    np.dtype(self.dtype).itemsize,
-                                    nx_local) is not None
-                and _os.environ.get('CALES_DSMAG_TWOPASS', '') != '1')
-        elif (self.use_pallas_mom and cfg.sgstype == 'dsmag'
-              and self._gx_sharded and not self._xwalled):
-            # 2D (gy, gx) pencil meshes (round 4): the one-pass kernel
-            # runs on MATERIALIZED 64-lane x-halo extensions (the filter
-            # chain needs 3-deep x ghosts — deeper than the 1-column xe
-            # roll-fixup bundle; 64/side keeps the lane tiling aligned
-            # and the in-kernel rolls' wraparound contaminates only the
-            # pad).  The averaging sums mask to the interior lanes
-            # (x_interior).  y-walled (duct/cavity class) configs pass
-            # the ye bundles x-extended with the same ppermute exchange
-            # (their rows are periodic in x) + per-shard ywf wall gating.
-            from .ops import pallas_dsmag as pds
-            ok = (pds.eligible(cfg, self.sgs_setup)
-                  and self._dsmag_onepass_vals_ok()
-                  and nx_local >= 64
-                  and pds.fused_tiles(nz, ny_local,
-                                      np.dtype(self.dtype).itemsize,
-                                      nx_local + 128) is not None
-                  and _os.environ.get('CALES_DSMAG_TWOPASS', '') != '1')
-            self.use_pallas_dsmag = ok
-            self._dsmag_onepass = ok
-            self._dsmag_xext = ok
-        # z-only CN Helmholtz solves as single aliased Pallas Thomas passes
-        # (ops/pallas_solve.apply_thomas_helmholtz_z): one in-place
-        # read+write per velocity component instead of two (nz, nz) eigen
-        # matmul passes each (solve_z_only falls back per component for
-        # periodic z)
-        self.use_pallas_cn = (
-            cfg.impdiff and cfg.impdiff_1d and self.use_pallas_mom
-            and self.mesh is None
-            and _os.environ.get('CALES_NO_PALLAS_CN', '') != '1')
-        # kernel-sharded impdiff_1d: z is never sharded, so the CN solves
-        # run per shard with zero communication (solve_z_only_sharded)
-        self.use_pallas_cn_sharded = (
-            cfg.impdiff and cfg.impdiff_1d and self._kernel_sharded
-            and _os.environ.get('CALES_NO_PALLAS_CN', '') != '1')
-        self.use_pallas_cn = self.use_pallas_cn or self.use_pallas_cn_sharded
-        # full-3D implicit diffusion: per-component aliased Pallas
-        # Helmholtz pipelines (transforms fused into the y passes + the
-        # alpha-scaled Thomas z stage with qz tail passthrough)
-        self._cn3_pallas = (False, False, False)
-        if (cfg.impdiff and not cfg.impdiff_1d and self.use_pallas_mom
-                and self.mesh is None
-                and _os.environ.get('CALES_NO_PALLAS_CN', '') != '1'):
-            isz = np.dtype(self.dtype).itemsize
-            self._cn3_pallas = tuple(
-                poisson.pallas_helmholtz_eligible(sv, (nz, ny, nx), isz)
-                for sv in self.solver_vel)
-            self.use_pallas_cn = any(self._cn3_pallas)
         # benchmark instrumentation: skip the pressure solve (pp = 0) so the
         # Poisson fraction can be measured by difference (bench.py --matrix);
         # set BEFORE the first step call (the step traces lazily)
@@ -544,55 +144,47 @@ class Simulation:
 
     # ------------------------------------------------------------------
     def exec_path(self) -> str:
-        """One-line description of the execution path this Simulation took —
-        logged at startup (the reference prints its decomposition/backends,
-        initmpi.f90:104-139) so a silently-degraded run is visible."""
-        if self.use_pallas_mom:
-            kind = ('kernel-sharded' if self._kernel_sharded
-                    else 'kernel-single')
-            sgs = ('dsmag-kernel-1pass' if self._dsmag_onepass
-                   else 'dsmag-kernel' if self.use_pallas_dsmag
-                   else 'smag-kernel' if self.use_pallas_smag
-                   else 'none-elided' if self.cfg.sgstype == 'none'
-                   else f'{self.cfg.sgstype}-xla')
-            fus = [n for n, on in (('fillps', self._fuse_mom_fillps),
-                                   ('smag', self._fuse_correc_smag),
-                                   ('xop', self._fuse_xop),
-                                   ('yop', getattr(self, '_fuse_yop',
-                                                   False)),
-                                   ('psolve', getattr(self, 'use_pallas_solve',
-                                                      False)
-                                    or getattr(self, 'use_pallas_solve_sharded',
-                                               False)),
-                                   ('cn', getattr(self, 'use_pallas_cn',
-                                                  False)),
-                                   ('scal', self.cfg.scalar and getattr(
-                                       self, '_scal_kernel_ok', False))) if on]
-            tag = f", fused: {'+'.join(fus)}" if fus else ''
-            return f'{kind} (sgs: {sgs}{tag})'
-        why = self._fallback_reason or 'unknown'
-        return f'XLA-fallback ({why})'
+        """One-line description of how this Simulation runs — logged at
+        startup (the reference prints its decomposition/backends,
+        initmpi.f90:104-139): device, transform per axis, z solver and
+        the matmul precision of the operator contractions."""
+        sv = self.solver_p
+        dev = f'{self.device.platform} ({self.device.device_kind})'
+        if self.mesh is not None:
+            dev += f', mesh {dict(self.mesh.shape)}'
+        return (f'{dev}; transforms x={sv.trx.kind} y={sv.try_.kind}; '
+                f'z solver {poisson.z_solver_name(sv)}; '
+                f'matmul precision {tr.precision_name(self.dtype)}; '
+                f'{self.cfg.dtype}')
+
+    def _x64(self):
+        # trace and run in the config's precision: with x64 on, the float64
+        # grid metrics would otherwise promote a float32 step
+        return jax.enable_x64(self.dtype == np.float64)
 
     # ------------------------------------------------------------------
     def initial_state(self, u, v, w, p) -> State:
         dt = self.dtype
-        z = lambda a: jnp.asarray(a, dtype=dt)
-        u, v, w, p = z(u), z(v), z(w), z(p)
-        zeros = jnp.zeros_like(u)
-        nx, ny, nz = self.cfg.ng
-        vlo = (jnp.zeros((nz + 2, ny + 2), dt), jnp.zeros((nz + 2, nx + 2), dt),
-               jnp.zeros((ny + 2, nx + 2), dt))
-        sfield = None
-        ds_old = None
-        if self.cfg.scalar:
-            sfield = (jnp.ones_like(u) if self.cfg.iniscal == 'uni'
-                      else jnp.zeros_like(u))
-            ds_old = jnp.zeros_like(u)
-        st0 = State(u=u, v=v, w=w, p=p, visct=zeros, vlo=vlo,
-                    rhs_old=(zeros, zeros, zeros),
-                    time=jnp.zeros((), dt), istep=jnp.zeros((), jnp.int32),
-                    s=sfield, dsdt_old=ds_old)
-        return self._init_jit(st0)
+        with self._x64():
+            z = lambda a: jnp.asarray(a, dtype=dt)
+            u, v, w, p = z(u), z(v), z(w), z(p)
+            zeros = jnp.zeros_like(u)
+            nx, ny, nz = self.cfg.ng
+            vlo = (jnp.zeros((nz + 2, ny + 2), dt),
+                   jnp.zeros((nz + 2, nx + 2), dt),
+                   jnp.zeros((ny + 2, nx + 2), dt))
+            sfield = None
+            ds_old = None
+            if self.cfg.scalar:
+                sfield = (jnp.ones_like(u) if self.cfg.iniscal == 'uni'
+                          else jnp.zeros_like(u))
+                ds_old = jnp.zeros_like(u)
+            st0 = State(u=u, v=v, w=w, p=p, visct=zeros, vlo=vlo,
+                        rhs_old=(zeros, zeros, zeros),
+                        time=jnp.zeros((), dt),
+                        istep=jnp.zeros((), jnp.int32),
+                        s=sfield, dsdt_old=ds_old)
+            return self._init_jit(st0)
 
     def _init_impl(self, st0: State):
         # initial BC fill + SGS (main.f90:370-375)
@@ -601,31 +193,25 @@ class Simulation:
         up, vp, wp, vlo = bnd.pad_velocity(
             u, v, w, self.cbcvel, bcu, bcv, bcw, self.cfg.dl, self.grid.dzc,
             self.grid.dzf, vlo=None, is_correc=False)
-        # enforce the State dtype invariant: with x64 enabled (CPU test
-        # runs) the XLA sgs path promotes through the f64 grid metrics
         visct = self._compute_sgs(up, vp, wp).astype(self.dtype)
-        zq = None
         u_i, v_i, w_i = (up[1:-1, 1:-1, 1:-1], vp[1:-1, 1:-1, 1:-1],
                          wp[1:-1, 1:-1, 1:-1])
-        if self.use_pallas_mom:
-            zq = self._zedge_vel(u_i, v_i, w_i, bcu, bcv, bcw,
-                                 is_correc=False)
-        return st0._replace(u=u_i, v=v_i, w=w_i, vlo=vlo, visct=visct, zq=zq)
+        return st0._replace(u=u_i, v=v_i, w=w_i, vlo=vlo, visct=visct)
 
     # ------------------------------------------------------------------
-    def _dynamic_bcs(self, u, v, w, fadd=None):
+    def _dynamic_bcs(self, u, v, w):
         """Velocity BC planes; wall-modeled faces get fresh Neumann values
-        from the log-law (bounduvw is_updt_wm path, bound.f90:120-123).
-
-        fadd: (fu, fv) deferred bulk-forcing constants — the wm must see
-        the post-forcing velocity (reference order: forcing then bound,
-        rk.f90:197-222 + main.f90:493-501), so the sampled hwm rows get
-        the traced constants added BEFORE their ghost fill."""
+        from the log-law (bounduvw is_updt_wm path, bound.f90:120-123)."""
         bcu, bcv, bcw = self.bcu_vals, self.bcv_vals, self.bcw_vals
         if not self.has_wm:
             return bcu, bcv, bcw
-        if getattr(self, '_wm_fast', False):
-            return self._wm_bcs_fast(u, v, w, fadd=fadd)
+        if self._wm_fast:
+            return self._wm_bcs_fast(u, v, w)
+        return self._wm_bcs_full(u, v, w)
+
+    def _wm_bcs_full(self, u, v, w):
+        """Wall-model BC update from full-field pads (any wall topology)."""
+        bcu, bcv, bcw = self.bcu_vals, self.bcv_vals, self.bcw_vals
         up, vp, wp, _ = bnd.pad_velocity(
             u, v, w, self.cbcvel, bcu, bcv, bcw, self.cfg.dl, self.grid.dzc,
             self.grid.dzf, vlo=None, is_correc=False)
@@ -635,9 +221,7 @@ class Simulation:
 
     def _row_pad_xy(self, plane, ivel):
         """x/y ghost fill of one (ny, nx) z-row — the only rows the z-wall
-        wall model reads (scalar x/y BCs, gated by _wm_fast: the
-        full-field pad_velocity here cost ~6 field passes per substep on
-        the kernel path for 4 consumed rows)."""
+        wall model reads (scalar x/y BCs, gated by _wm_fast)."""
         face_key = ('x', 'y', 'z')[ivel]
         bcs = (self.bcu_vals, self.bcv_vals, self.bcw_vals)[ivel]
         dl = self.cfg.dl
@@ -674,18 +258,14 @@ class Simulation:
                 s = bnd._set_centered(s, axis, lts, bcs[idir], dr_par)
         return s[:, 0, :]
 
-    def _wm_bcs_fast(self, u, v, w, fadd=None):
+    def _wm_bcs_fast(self, u, v, w):
         """y/z-wall wall-model BC update from sliced rows instead of a
         full-field pad (identical numbers: the x->y fill of a z-row only
-        reads that row, and likewise the x->z fill of a y-row).  fadd:
-        deferred bulk-forcing (fu, fv) added to the sampled interior rows
-        before the ghost fill (so value-carrying D/N ghost recipes see the
-        post-forcing velocity exactly)."""
+        reads that row, and likewise the x->z fill of a y-row)."""
         from .ops.boundary import bc_plane_shapes, ensure_plane
         cfg = self.cfg
         shapes = bc_plane_shapes(cfg.ng)
         dtype = u.dtype
-        fu_a, fv_a = (0.0, 0.0) if fadd is None else fadd
         bcu_z = list(self.bcu_vals[2])
         bcv_z = list(self.bcv_vals[2])
         for ib in range(2):
@@ -693,10 +273,10 @@ class Simulation:
                 continue
             k2 = self.index_wm[2][ib]
             k1 = k2 - 1 if ib == 0 else k2 + 1
-            U1 = self._row_pad_xy(u[k1 - 1] + fu_a, 0)
-            U2 = self._row_pad_xy(u[k2 - 1] + fu_a, 0)
-            V1 = self._row_pad_xy(v[k1 - 1] + fv_a, 1)
-            V2 = self._row_pad_xy(v[k2 - 1] + fv_a, 1)
+            U1 = self._row_pad_xy(u[k1 - 1], 0)
+            U2 = self._row_pad_xy(u[k2 - 1], 0)
+            V1 = self._row_pad_xy(v[k1 - 1], 1)
+            V2 = self._row_pad_xy(v[k2 - 1], 1)
             umag = ensure_plane(self.bcu_vals[2][ib], shapes['z'], dtype)
             vmag = ensure_plane(self.bcv_vals[2][ib], shapes['z'], dtype)
             bcu_z[ib], bcv_z[ib] = wm.z_wall_wm_planes(
@@ -709,8 +289,8 @@ class Simulation:
                 continue
             j2 = self.index_wm[1][ib]
             j1 = j2 - 1 if ib == 0 else j2 + 1
-            U1 = self._row_pad_xz(u[:, j1 - 1] + fu_a, 0)
-            U2 = self._row_pad_xz(u[:, j2 - 1] + fu_a, 0)
+            U1 = self._row_pad_xz(u[:, j1 - 1], 0)
+            U2 = self._row_pad_xz(u[:, j2 - 1], 0)
             W1 = self._row_pad_xz(w[:, j1 - 1], 2)
             W2 = self._row_pad_xz(w[:, j2 - 1], 2)
             umag = ensure_plane(self.bcu_vals[1][ib], shapes['y'], dtype)
@@ -729,7 +309,7 @@ class Simulation:
                                 vlo=vlo, is_correc=is_correc)
 
     def _lc(self, x):
-        if not getattr(self, '_use_layout_pin', False) or x.ndim != 3:
+        if not self._use_layout_pin or x.ndim != 3:
             return x
         from jax.experimental.layout import Layout
         from jax.experimental.layout import with_layout_constraint
@@ -742,915 +322,6 @@ class Simulation:
     def _pad_s(self, s):
         cbcs = tuple((self.cfg.cbcsgs[0][d], self.cfg.cbcsgs[1][d]) for d in range(3))
         return bnd.pad_scalar(s, cbcs, self.bcs_vals, self.cfg.dl, self.grid.dzc)
-
-    # --- shard_map kernel dispatch (1D/2D pencil decomposition) ---
-    def _gy(self):
-        return dict(zip(self.mesh.axis_names, self.mesh.devices.shape))['gy']
-
-    def _gx(self):
-        return dict(zip(self.mesh.axis_names, self.mesh.devices.shape))['gx']
-
-    def _halo_y(self, a):
-        """Exchange 8-row y halo strips with the cyclic neighbors and return
-        the (…, ny_local+16, nx) extended array (the updthalo /
-        cudecompUpdateHalos analogue, bound.f90:619-723; runs inside
-        shard_map, so `a` is the per-device block)."""
-        gy = self._gy()
-        fwd = [(i, (i + 1) % gy) for i in range(gy)]
-        bwd = [(i, (i - 1) % gy) for i in range(gy)]
-        lo = jax.lax.ppermute(a[:, -8:], 'gy', fwd)
-        hi = jax.lax.ppermute(a[:, :8], 'gy', bwd)
-        return jnp.concatenate([lo, a, hi], axis=1)
-
-    def _halo_x(self, a, width=64):
-        """Exchange `width`-lane x halos with the cyclic gx neighbors and
-        return the (..., nx_local + 2*width) extended array — the
-        materialized x analogue of _halo_y for kernels whose x stencil
-        chain is deeper than the 1-column xe roll-fixup bundle (the dsmag
-        filter chain needs 3-deep ghosts).  width=64 keeps the extension
-        128-lane aligned."""
-        gx = self._gx()
-        fwd = [(i, (i + 1) % gx) for i in range(gx)]
-        bwd = [(i, (i - 1) % gx) for i in range(gx)]
-        lo = jax.lax.ppermute(a[..., -width:], 'gx', fwd)
-        hi = jax.lax.ppermute(a[..., :width], 'gx', bwd)
-        return jnp.concatenate([lo, a, hi], axis=-1)
-
-    def _halo_strips(self, arrays, edges):
-        """Packed 8-row y-halo strips for the per-shard kernels (1D
-        decomposition): field m rows [16m, 16m+8) = ppermute'd lo strip
-        (the y-below neighbor's last 8 rows), [16m+8, 16m+16) = hi strip —
-        NO (ny+16)-extended array is ever materialized (each such copy
-        costs ~2 extra HBM passes per kernel input; the strips are
-        16/ny_local of that).  Returns (yh, yhz) for the kernels' 'strips'
-        window mode."""
-        gy = self._gy()
-        fwd = [(i, (i + 1) % gy) for i in range(gy)]
-        bwd = [(i, (i - 1) % gy) for i in range(gy)]
-
-        def pack(arrs):
-            parts = []
-            for a in arrs:
-                parts.append(jax.lax.ppermute(a[:, -8:], 'gy', fwd))
-                parts.append(jax.lax.ppermute(a[:, :8], 'gy', bwd))
-            return jnp.concatenate(parts, axis=1)
-        return pack(arrays), pack(edges)
-
-    def _ywf_shard(self, dt):
-        """Per-shard y-wall flags (lo, hi) for the sharded y-walled kernel
-        path (runs inside shard_map): the SPMD kernel program is identical
-        on every shard, so the in-kernel wall ghost fixes are gated on
-        whether THIS shard owns the global lo / hi y wall."""
-        row = jax.lax.axis_index('gy')
-        gy = self._gy()
-        one, zero = jnp.ones((), dt), jnp.zeros((), dt)
-        return (jnp.where(row == 0, one, zero),
-                jnp.where(row == gy - 1, one, zero))
-
-    def _xe_pack_cols(self, stacks):
-        """Packed xe bundle from host-built x-ghost-column stacks
-        (x-WALLED single-chip path — no ppermute, the ghost columns come
-        from the BC recipes, ops/boundary.xedge_*): lane 2m = padded x 0,
-        lane 2m+1 = padded x nx+1 of field m, zero-padded to 128 lanes."""
-        cols = []
-        for s in stacks:
-            cols.append(s[..., 0:1])
-            cols.append(s[..., 1:2])
-        pad = jnp.zeros(cols[0].shape[:-1] + (128 - len(cols),),
-                        cols[0].dtype)
-        return jnp.concatenate(cols + [pad], axis=-1)
-
-    def _patch_last_xcol(self, q, col):
-        """Replace the last interior x column (the x-staggered wall-face
-        rewrite slot, padded x nx) with the bundle value — the set_bc
-        rewrite of the prediction fill, presented to every kernel
-        consumer (fillps divergence, correc base)."""
-        return jnp.concatenate([q[..., :-1], col[..., None].astype(q.dtype)],
-                               axis=-1)
-
-    def _xbundle_vel(self, u, v, w, vlo=None, is_correc=False, bcs=None):
-        bcu, bcv, bcw = (bcs if bcs is not None
-                         else (self.bcu_vals, self.bcv_vals, self.bcw_vals))
-        return bnd.xedge_velocity(
-            u, v, w, self.cbcvel, bcu, bcv, bcw,
-            self.cfg.dl, self.grid.dzc, self.grid.dzf,
-            vlo=vlo, is_correc=is_correc)
-
-    @staticmethod
-    def _rec_ghosts(arr, lts, bvals, dr, axis=-1):
-        """(lo, hi) ghost values of a centered field along `axis` (set_bc
-        formulas, scalar static BCs) — used for vlo-plane ghost entries in
-        the x+y-walled kernel path."""
-        b0, b1 = float(bvals[0]), float(bvals[1])
-        first = jnp.take(arr, 0, axis=axis)
-        last = jnp.take(arr, arr.shape[axis] - 1, axis=axis)
-        lo = 2.0 * b0 - first if lts[0] == 'D' else -dr[0] * b0 + first
-        hi = 2.0 * b1 - last if lts[1] == 'D' else dr[1] * b1 + last
-        return lo, hi
-
-    def _xye_section(self, entries, vlo=None, is_correc=False):
-        """xe corner section of the ye/yze bundles (x+y-walled configs):
-        the y (then z) recipes applied to each field's x-ghost-column
-        stack — the sequential x->y(->z) corner values the xe window's
-        y-wall ghost rows must present (_PlaneAccessor xe_ybase).
-
-        entries: (xcols (nz, ny, 3), kind 'c'/'v'/'w', ylts, ybc, zlts,
-        zbc) per field, in xe-lane order.  Returns the packed
-        ((nz, 3, nx), (3, 3, nx)) section rows (lanes 2m / 2m+1 = the
-        lo / hi ghost columns; scalar static BCs only)."""
-        cfg, grid = self.cfg, self.grid
-        nz = cfg.ng[2]
-        dr_y = (cfg.dl[1], cfg.dl[1])
-        dzc, dzf = grid.dzc, grid.dzf
-        dr_zc = (float(dzc[0]), float(dzc[nz]))
-        dr_zf = (float(dzf[0]), float(dzf[nz]))
-        rows, zrows = [], []
-        for xc, kind, ylts, ybc, zlts, zbc in entries:
-            if kind == 'v':
-                keep = is_correc and ylts[0] != 'P' and vlo is not None
-                if keep:
-                    v1 = vlo[1]
-                    lo = jnp.stack([v1[1:-1, 0], v1[1:-1, -1],
-                                    v1[1:-1, -2]], axis=1).astype(xc.dtype)
-                    sl, la = xc[:, -2], xc[:, -1]
-                    hi = sl if ylts[1] == 'D' else la
-                    cr = jnp.stack([lo, hi, la], axis=1)
-                else:
-                    cr = bnd._yrows_face(xc, ylts, ybc, dr_y)
-            else:
-                cr = bnd._yrows_centered(xc, ylts, ybc, dr_y)
-            if kind == 'w':
-                keepw = is_correc and zlts[0] != 'P' and vlo is not None
-                if keepw:
-                    # the stored wlo plane's corner entries (y-ghost AND
-                    # x-ghost, maintained through the correc evolution)
-                    v2 = vlo[2]
-                    yix = jnp.asarray([0, -1, -2])
-                    lo = v2[yix][:, yix].astype(xc.dtype)
-                    second_last, last = cr[-2], cr[-1]
-                    hi = second_last if zlts[1] == 'D' else last
-                    zr = jnp.stack([lo, last, hi])
-                else:
-                    zr = bnd._zedge_of_yrows(cr, zlts, zbc, dr_zf,
-                                             face=True)
-            else:
-                zr = bnd._zedge_of_yrows(cr, zlts, zbc, dr_zc)
-            rows.append(cr)
-            zrows.append(zr)
-
-        def pack(stks):
-            cols = []
-            for s in stks:
-                cols.append(s[..., 0:1])
-                cols.append(s[..., 1:2])
-            pad = jnp.zeros(cols[0].shape[:-1]
-                            + (cfg.ng[0] - len(cols),), cols[0].dtype)
-            return jnp.concatenate(cols + [pad], axis=-1)
-        return pack(rows), pack(zrows)
-
-    def _xye_entries(self, cstks, with_p=True, correc_wp=False,
-                     has_scal=False):
-        """Entry specs for _xye_section in xe-lane order: velocity triple
-        (+ visct + pressure + passive scalar, mom site), prediction triple
-        (fillps), or the (w, pp) pair (correc site).  has_scal: the last
-        stack is the passive scalar's x-ghost columns (its own cbcscal
-        recipes) — must be passed explicitly, the length heuristic below
-        cannot tell a trailing scalar from visct."""
-        cfg = self.cfg
-        ylts = lambda iv: (self.cbcvel[0][1][iv], self.cbcvel[1][1][iv])
-        zlts = lambda iv: (self.cbcvel[0][2][iv], self.cbcvel[1][2][iv])
-        bcs = (self.bcu_vals, self.bcv_vals, self.bcw_vals)
-        if correc_wp:
-            xw, xp_ = cstks
-            return [(xw, 'w', ylts(2), bcs[2][1], zlts(2), bcs[2][2]),
-                    (xp_, 'c', self.cbcpre[1], self.bcp_vals[1],
-                     self.cbcpre[2], self.bcp_vals[2])]
-        out = [(cstks[0], 'c', ylts(0), bcs[0][1], zlts(0), bcs[0][2]),
-               (cstks[1], 'v', ylts(1), bcs[1][1], zlts(1), bcs[1][2]),
-               (cstks[2], 'w', ylts(2), bcs[2][1], zlts(2), bcs[2][2])]
-        k = 3
-        if len(cstks) - has_scal > (3 + with_p):
-            cbcs = tuple((cfg.cbcsgs[0][d], cfg.cbcsgs[1][d])
-                         for d in range(3))
-            out.append((cstks[k], 'c', cbcs[1], self.bcs_vals[1],
-                        cbcs[2], self.bcs_vals[2]))
-            k += 1
-        if with_p:
-            out.append((cstks[k], 'c', self.cbcpre[1], self.bcp_vals[1],
-                        self.cbcpre[2], self.bcp_vals[2]))
-            k += 1
-        if has_scal:
-            cbcsc = tuple((cfg.cbcscal[0][d], cfg.cbcscal[1][d])
-                          for d in range(3))
-            bvsc = tuple((float(cfg.bcscal[0][d]), float(cfg.bcscal[1][d]))
-                         for d in range(3))
-            out.append((cstks[k], 'c', cbcsc[1], bvsc[1], cbcsc[2],
-                        bvsc[2]))
-        return out
-
-    def _yslice_gx(self, a):
-        """Local x block of a replicated global y-edge bundle (inside
-        shard_map on a gx > 1 mesh): the kernels' bundle windows are
-        per-shard, so the global (…, nx) bundle is sliced to this shard's
-        x range."""
-        gx = self._gx()
-        if gx == 1:
-            return a
-        nxl = a.shape[-1] // gx
-        xi = jax.lax.axis_index('gx')
-        return jax.lax.dynamic_slice_in_dim(a, xi * nxl, nxl, axis=a.ndim - 1)
-
-    def _ystag_rw_gx(self, q, row):
-        """Apply the y-staggered wall-face rewrite (bundle padded-ny slot)
-        to the hi-wall shard's last interior y row — needed BEFORE packing
-        x ghost columns (gx > 1 y-walled), so neighbors' edge lanes see the
-        wall-face value the in-kernel ystag fix presents for local reads."""
-        gy = self._gy()
-        is_hi = jax.lax.axis_index('gy') == gy - 1
-        last = jnp.where(is_hi, row.astype(q.dtype), q[:, -1])
-        return jnp.concatenate([q[:, :-1], last[:, None]], axis=1)
-
-    def _halo_y_patched(self, a, rlo, rhi):
-        """_halo_y with the wall shards' +-1 ghost rows (rows 7 / 8+ny of
-        the y_ext layout — the only halo rows a 3-point stencil reads)
-        overwritten by exact host-built bundle values; interior shards keep
-        the ppermute'd neighbor rows."""
-        gy = self._gy()
-        fwd = [(i, (i + 1) % gy) for i in range(gy)]
-        bwd = [(i, (i - 1) % gy) for i in range(gy)]
-        lo = jax.lax.ppermute(a[:, -8:], 'gy', fwd)
-        hi = jax.lax.ppermute(a[:, :8], 'gy', bwd)
-        row = jax.lax.axis_index('gy')
-        wl = jnp.where(row == 0, rlo.astype(a.dtype), lo[:, -1])
-        wh = jnp.where(row == gy - 1, rhi.astype(a.dtype), hi[:, 0])
-        return jnp.concatenate(
-            [lo[:, :-1], wl[:, None], a, wh[:, None], hi[:, 1:]], axis=1)
-
-    def _xe_wall_rows(self, ye_l, nf):
-        """(lo, hi) xe-lane-packed y-wall ghost rows: lane 2m / 2m+1 of the
-        xe ghost-column bundle at the y-ghost rows must hold the x
-        neighbors' ghost values — i.e. their y-edge bundle rows (base
-        3m = padded y 0, 3m+1 = padded ny+1) at their boundary columns."""
-        lo = self._xe_pack([ye_l[:, 3 * m] for m in range(nf)])
-        hi = self._xe_pack([ye_l[:, 3 * m + 1] for m in range(nf)])
-        return lo, hi
-
-    def _xe_pack(self, arrays):
-        """Packed x-ghost-column bundle for the per-shard kernels (gx > 1):
-        ppermute each array's boundary columns with the cyclic x neighbors
-        and pack lane 2m = lo ghost (left neighbor's last column), lane
-        2m+1 = hi ghost (right neighbor's first column); padded to 128
-        lanes (Mosaic DMA granularity).  Runs inside shard_map.  The
-        corner rows are completed by _halo_y of the RESULT (a 2-hop
-        exchange reaching the diagonal neighbor)."""
-        gx = self._gx()
-        fwd = [(i, (i + 1) % gx) for i in range(gx)]
-        bwd = [(i, (i - 1) % gx) for i in range(gx)]
-        cols = []
-        for a in arrays:
-            cols.append(jax.lax.ppermute(a[..., -1:], 'gx', fwd))
-            cols.append(jax.lax.ppermute(a[..., :1], 'gx', bwd))
-        pad = jnp.zeros(cols[0].shape[:-1] + (128 - len(cols),),
-                        cols[0].dtype)
-        return jnp.concatenate(cols + [pad], axis=-1)
-
-    def _xe_wall_patch(self, pack, xeb, nf):
-        """x-WALLED on gx > 1: the cyclic _xe_pack wraps the domain, so
-        the gx-edge shards' ghost lanes hold the OPPOSITE wall's columns —
-        replace them from the host-built global recipe bundle (xeb,
-        replicated over gx, same 2m/2m+1 lane layout): lanes 2m on the
-        first shard (padded x 0), lanes 2m+1 on the last (padded nx+1).
-        Interior shards' ppermute'd neighbor columns are already the
-        correct interior values."""
-        gx = self._gx()
-        ix = jax.lax.axis_index('gx')
-        lane = jax.lax.broadcasted_iota(jnp.int32, pack.shape,
-                                        pack.ndim - 1)
-        lo = (lane % 2 == 0) & (lane < 2 * nf) & (ix == 0)
-        hi = (lane % 2 == 1) & (lane < 2 * nf) & (ix == gx - 1)
-        return jnp.where(lo | hi, xeb, pack)
-
-    def _xe_vface_patch(self, pack, src, iv):
-        """x+y-walled on gx>1: the host-built xeb columns are recipes of
-        the UN-rewritten global v, so the gx-edge wall lanes' y-face row
-        (the y-staggered wall-face slot _ystag_rw_gx rewrites on the
-        interior columns before packing) must be presented from the ye
-        bundles' xe corner section face row (3*nb+2) on the gy-hi wall
-        shard — the same sequential y-rewrite the single-chip in-kernel
-        xe_ybase fix applies."""
-        gx, gy = self._gx(), self._gy()
-        ix = jax.lax.axis_index('gx')
-        iy = jax.lax.axis_index('gy')
-        lane = jax.lax.broadcasted_iota(jnp.int32, pack.shape,
-                                        pack.ndim - 1)
-        row = jax.lax.broadcasted_iota(jnp.int32, pack.shape,
-                                       pack.ndim - 2)
-        at_face = (row == pack.shape[-2] - 1) & (iy == gy - 1)
-        lo = (lane == 2 * iv) & (ix == 0)
-        hi = (lane == 2 * iv + 1) & (ix == gx - 1)
-        src = jnp.expand_dims(src, -2).astype(pack.dtype)
-        return jnp.where(at_face & (lo | hi), src, pack)
-
-    def _xe_packs_ywalled_gx(self, fx, ex, ye_g, yze_g, ye_l, yze_l,
-                             xeb=None, xzeb=None, nb=None, v_idx=None):
-        """xe/xze extended packs for the gx>1 y-walled kernel branches:
-        cyclic ppermute column packs whose wall-ghost rows (rows 7 /
-        8+ny of the y_ext layout) come from the x neighbors' ye bundle
-        rows (_xe_wall_rows).  x+y-walled configs additionally replace
-        the gx-edge shards' wall LANES from the host-built recipe
-        bundles (xeb/xzeb, _xe_wall_patch) and those lanes' y-ghost rows
-        from the ye bundles' xe corner section (rows 3*nb+0/1 of the
-        GLOBAL, unsliced bundles — the section lanes are xe-lane-packed,
-        not x positions, so the per-shard x slice is not usable there)."""
-        nf = len(fx)
-        lo_r, hi_r = self._xe_wall_rows(ye_l, nf)
-        zlo, zhi = self._xe_wall_rows(yze_l, nf)
-        xep, xzep = self._xe_pack(fx), self._xe_pack(ex)
-        if xeb is not None:
-            wp, L = self._xe_wall_patch, xep.shape[-1]
-            xsb = 3 * (nb if nb is not None else nf)
-            lo_r = wp(lo_r, ye_g[:, xsb, :L], nf)
-            hi_r = wp(hi_r, ye_g[:, xsb + 1, :L], nf)
-            zlo = wp(zlo, yze_g[:, xsb, :L], nf)
-            zhi = wp(zhi, yze_g[:, xsb + 1, :L], nf)
-            xep = wp(xep, xeb, nf)
-            xzep = wp(xzep, xzeb, nf)
-            if v_idx is not None:
-                xep = self._xe_vface_patch(xep, ye_g[:, xsb + 2, :L],
-                                           v_idx)
-                xzep = self._xe_vface_patch(xzep, yze_g[:, xsb + 2, :L],
-                                            v_idx)
-        return (self._halo_y_patched(xep, lo_r, hi_r),
-                self._halo_y_patched(xzep, zlo, zhi))
-
-    def _smap(self, fn, n_field_in, n_scalar_in, n_out, n_xeb_in=0,
-              n_field2_in=0):
-        """shard_map a per-device kernel wrapper: n_field_in field args
-        (z, y:'gy', x:'gx'), then n_xeb_in host-built x-ghost bundles
-        (y-sharded, REPLICATED over gx — their 128 packed lanes are not
-        x-decomposable), then n_field2_in more field args (the momentum
-        kernel's rhs carries), trailing scalars replicated."""
-        from jax import shard_map
-        from jax.sharding import PartitionSpec as Pspec
-        F = Pspec(None, 'gy', 'gx')
-        X = Pspec(None, 'gy', None)
-        S = Pspec()
-        out_specs = (F,) * n_out if n_out > 1 else F
-        return shard_map(fn, mesh=self.mesh,
-                         in_specs=(F,) * n_field_in + (X,) * n_xeb_in
-                                  + (F,) * n_field2_in
-                                  + (S,) * n_scalar_in,
-                         out_specs=out_specs, check_vma=False)
-
-    # --- z-edge stacks (Pallas kernel input format, ops/boundary.zedge_*) ---
-    def _zedge_vel(self, u, v, w, bcu, bcv, bcw, vlo=None, is_correc=False):
-        return bnd.zedge_velocity(u, v, w, self.cbcvel, bcu, bcv, bcw,
-                                  self.grid.dzc, self.grid.dzf,
-                                  vlo=vlo, is_correc=is_correc)
-
-    def _zedge_p(self, p):
-        return bnd.zedge_scalar(p, self.cbcpre[2], self.bcp_vals[2],
-                                self.grid.dzc)
-
-    def _zedge_s(self, s):
-        cbc_z = (self.cfg.cbcsgs[0][2], self.cfg.cbcsgs[1][2])
-        return bnd.zedge_scalar(s, cbc_z, self.bcs_vals[2], self.grid.dzc)
-
-    def _zedge_scal(self, s):
-        """z-edge stack of the passive scalar (its own BC table)."""
-        cfg = self.cfg
-        cbc_z = (cfg.cbcscal[0][2], cfg.cbcscal[1][2])
-        bv = (float(cfg.bcscal[0][2]), float(cfg.bcscal[1][2]))
-        return bnd.zedge_scalar(s, cbc_z, bv, self.grid.dzc)
-
-    # --- y-edge bundles (y-walled kernel path, ops/boundary.yedge_*) ---
-    def _pack_ybundle(self, stacks, zstacks, xsec=None):
-        """Pack per-field (nz, 3, nx) y-row stacks + (3, 3, nx) corner
-        stacks into the kernel bundles (rows 3m+0/1/2; 16 rows, or the
-        next multiple of 8 when the x+y-walled xe corner section rides
-        at base 3*nfields)."""
-        nz, _, nx = stacks[0].shape
-        dt = stacks[0].dtype
-        nrows = 3 * len(stacks)
-        parts, zparts = list(stacks), list(zstacks)
-        if xsec is not None:
-            parts.append(xsec[0])
-            zparts.append(xsec[1])
-            nrows += 3
-        rows = max(16, -(-nrows // 8) * 8)
-        ye = jnp.concatenate(
-            parts + [jnp.zeros((nz, rows - nrows, nx), dt)], axis=1)
-        yze = jnp.concatenate(
-            zparts + [jnp.zeros((3, rows - nrows, nx), dt)], axis=1)
-        return ye, yze
-
-    def _ybundle_vel(self, u, v, w, vlo=None, is_correc=False, bcs=None):
-        """bcs: (bcu, bcv, bcw) override — the wall-model-updated plane
-        pytrees for y/z-wall-modeled configs (the static scalars otherwise,
-        matching the reference's is_updt_wm=.false. reuse)."""
-        bcu, bcv, bcw = (bcs if bcs is not None
-                         else (self.bcu_vals, self.bcv_vals, self.bcw_vals))
-        return bnd.yedge_velocity(
-            u, v, w, self.cbcvel, bcu, bcv, bcw,
-            self.cfg.dl, self.grid.dzc, self.grid.dzf,
-            vlo=vlo, is_correc=is_correc)
-
-    def _ybundle_p(self, p):
-        return bnd.yedge_scalar(p, self.cbcpre, self.bcp_vals, self.cfg.dl,
-                                self.grid.dzc)
-
-    def _ybundle_s(self, s):
-        cbcs = tuple((self.cfg.cbcsgs[0][d], self.cfg.cbcsgs[1][d])
-                     for d in range(3))
-        return bnd.yedge_scalar(s, cbcs, self.bcs_vals, self.cfg.dl,
-                                self.grid.dzc)
-
-    def _ybundle_scal(self, s):
-        """y-row bundle of the passive scalar (its own BC table) — rides the
-        momentum kernel's ye bundle on y-walled configs."""
-        cfg = self.cfg
-        cbc = tuple((cfg.cbcscal[0][d], cfg.cbcscal[1][d]) for d in range(3))
-        bv = tuple((float(cfg.bcscal[0][d]), float(cfg.bcscal[1][d]))
-                   for d in range(3))
-        return bnd.yedge_scalar(s, cbc, bv, cfg.dl, self.grid.dzc)
-
-    def _compute_sgs_kernel(self, u, v, w, ue, ve, we):
-        """Static Smagorinsky via the fused Pallas kernel (z-walls/no-walls
-        configs; gated by use_pallas_smag).  Inputs: interiors + z-edge
-        stacks."""
-        from .ops import pallas_kernels as pk
-        from .config import C_SMAG
-        cfg, grid, setup = self.cfg, self.grid, self.sgs_setup
-        nz = cfg.ng[2]
-        # lwm z walls: one-sided ghost extrapolation (sgs.f90:682-767) — a
-        # ghost-row swap on the edge stacks (w's own face dir: skipped)
-        if setup.lwm_flags.get((0, 2)) or setup.lwm_flags.get((1, 2)):
-            f0, f1 = setup.fac_lwm
-            lo_on = bool(setup.lwm_flags.get((0, 2)))
-            hi_on = bool(setup.lwm_flags.get((1, 2)))
-
-            def swap(q, qe):
-                lo = (1.0 + f0) * q[0] - f0 * q[1] if lo_on else qe[0]
-                hi = (1.0 + f1) * q[-1] - f1 * q[-2] if hi_on else qe[2]
-                return jnp.stack([lo, qe[1], hi])
-            ue_s, ve_s = swap(u, ue), swap(v, ve)
-        else:
-            ue_s, ve_s = ue, ve
-        csd2 = (C_SMAG * setup.delta) ** 2
-        lo_wall, hi_wall = setup.is_wall6[4], setup.is_wall6[5]
-
-        def call_smag(uu, vv, ww, uue, vve, wwe, **kw):
-            if not self._kernel_sharded:
-                return pk.fused_smag(uu, vv, ww, uue, vve, wwe, grid.dzci,
-                                     grid.dzfi, cfg.dli[0], cfg.dli[1],
-                                     cfg.visc, csd2,
-                                     interpret=self._pallas_interpret, **kw)
-            from jax import shard_map
-            from jax.sharding import PartitionSpec as Pspec
-            F = Pspec(None, 'gy', 'gx')
-            F2 = Pspec('gy', 'gx')
-            halo = self._halo_y
-            statics = {k: kw[k] for k in ('dw_1d', 'nearlo_1d') if k in kw}
-            planes = [kw[k] for k in ('tauw_lo', 'tauw_hi') if k in kw]
-
-            def local(u_, v_, w_, ue_, ve_, we_, *pl):
-                pkw = dict(statics)
-                if pl:
-                    pkw['tauw_lo'], pkw['tauw_hi'] = pl
-                if not self._gx_sharded:
-                    ys = self._halo_strips([u_, v_, w_], [ue_, ve_, we_])
-                    return pk.fused_smag(u_, v_, w_, ue_, ve_, we_,
-                                         grid.dzci, grid.dzfi, cfg.dli[0],
-                                         cfg.dli[1], cfg.visc, csd2,
-                                         interpret=self._pallas_interpret,
-                                         ystrips=ys, **pkw)
-                pkw['xe'] = halo(self._xe_pack([u_, v_, w_]))
-                pkw['xze'] = halo(self._xe_pack([ue_, ve_, we_]))
-                return pk.fused_smag(halo(u_), halo(v_), halo(w_), halo(ue_),
-                                     halo(ve_), halo(we_), grid.dzci,
-                                     grid.dzfi, cfg.dli[0], cfg.dli[1],
-                                     cfg.visc, csd2,
-                                     interpret=self._pallas_interpret,
-                                     y_ext=True, **pkw)
-            return shard_map(local, mesh=self.mesh,
-                             in_specs=(F,) * 6 + (F2,) * len(planes),
-                             out_specs=F, check_vma=False)(
-                uu, vv, ww, uue, vve, wwe, *planes)
-
-        if not (lo_wall or hi_wall):
-            out = call_smag(u, v, w, ue_s, ve_s, we)
-        else:
-            # one-sided |grad u_par| at the z walls via periodic x/y rolls
-            # (sgs.f90:117-143 z rows, read through the FILL ghosts — the
-            # lwm extrapolation swap applies to the strain input only);
-            # *dzci metric folded in here
-            dzci = grid.dzci
-            A = u[0] - ue[0]
-            B = v[0] - ve[0]
-            t1 = A + jnp.roll(A, 1, axis=1)
-            t2 = B + jnp.roll(B, 1, axis=0)
-            tauw_lo = jnp.sqrt(t1 ** 2 + t2 ** 2) * dzci[0]
-            A = u[-1] - ue[2]
-            B = v[-1] - ve[2]
-            t1 = A + jnp.roll(A, 1, axis=1)
-            t2 = B + jnp.roll(B, 1, axis=0)
-            tauw_hi = jnp.sqrt(t1 ** 2 + t2 ** 2) * dzci[nz]
-            zc = grid.zc[1:nz + 1]
-            dw_lo = zc if lo_wall else np.full(nz, np.inf)
-            dw_hi = (cfg.l[2] - zc) if hi_wall else np.full(nz, np.inf)
-            nearlo = (dw_lo <= dw_hi).astype(np.float64)
-            dw_1d = np.minimum(dw_lo, dw_hi)
-            if not lo_wall:
-                tauw_lo = tauw_hi
-            if not hi_wall:
-                tauw_hi = tauw_lo
-            out = call_smag(u, v, w, ue_s, ve_s, we, dw_1d=dw_1d,
-                            nearlo_1d=nearlo, tauw_lo=tauw_lo,
-                            tauw_hi=tauw_hi)
-        assert out is not None, 'fused_smag gating inconsistency'
-        return out
-
-    def _ghost_row(self, rec, side, q1):
-        """scalar-BC z-ghost plane from the first/last interior plane."""
-        lt, b, dr = rec[3 * side:3 * side + 3]
-        if lt == 'D':
-            return 2.0 * b - q1
-        return (-dr * b + q1) if side == 0 else (dr * b + q1)
-
-    def _xinv_plane(self, q):
-        """Inverse x transform of one (ny, nx) plane (x-spectral fusion)."""
-        prec = (jax.lax.Precision.HIGHEST if q.dtype == jnp.float64
-                else jax.lax.Precision.HIGH)
-        return jnp.matmul(q, jnp.asarray(self._xopiT, q.dtype),
-                          precision=prec)
-
-    def _correc_smag_fused(self, u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk,
-                           fu=0.0, fv=0.0, xspectral=False, alias_p=False):
-        """Single-pass projection + pressure update + smag nu_t
-        (pallas_kernels.fused_correc_updatep_smag).  The van Driest tauw
-        planes come from host-side-corrected wall-adjacent planes — tiny
-        (ny, nx) expressions, so no extra field pass.  fu/fv: deferred
-        bulk-forcing constants (fused-fillps momentum path).  xspectral:
-        pp/ppe are x-spectral (the x fusion); the kernel inverts them on
-        its MXU and the two wall rows are inverted here."""
-        from .ops import pallas_kernels as pk
-        from .config import C_SMAG
-        cfg, grid, setup = self.cfg, self.grid, self.sgs_setup
-        nz = cfg.ng[2]
-        dxi, dyi = cfg.dli[0], cfg.dli[1]
-        csd2 = (C_SMAG * setup.delta) ** 2
-        lo_wall, hi_wall = setup.is_wall6[4], setup.is_wall6[5]
-        kw = {}
-        if xspectral:
-            kw['xopi'] = self._xopiT
-        if lo_wall or hi_wall:
-            dzci = grid.dzci
-            dzc = grid.dzc
-
-            def pprow(k):
-                q = pp[k]
-                return self._xinv_plane(q) if xspectral else q
-
-            def corr_uv(uq, vq, ppq):
-                uq = fu + uq - dtrk * dxi * (jnp.roll(ppq, -1, axis=1) - ppq)
-                vq = fv + vq - dtrk * dyi * (jnp.roll(ppq, -1, axis=0) - ppq)
-                return uq, vq
-
-            # wall-model faces: recompute the Neumann planes from the
-            # host-side-CORRECTED hwm rows (exactly what the unfused path's
-            # post-correction _dynamic_bcs does, main.f90:500-501) — plane
-            # expressions only, no field pass
-            wm_planes = {}
-            for ib in range(2):
-                if cfg.lwm[ib][2] == 0:
-                    continue
-                from .ops.boundary import bc_plane_shapes, ensure_plane
-                shapes = bc_plane_shapes(cfg.ng)
-                k2 = self.index_wm[2][ib]
-                k1 = k2 - 1 if ib == 0 else k2 + 1
-                cU, cV = {}, {}
-                for kp in (k1, k2):
-                    uq, vq = corr_uv(u[kp - 1], v[kp - 1], pprow(kp - 1))
-                    cU[kp] = self._row_pad_xy(uq, 0)
-                    cV[kp] = self._row_pad_xy(vq, 1)
-                umag = ensure_plane(self.bcu_vals[2][ib], shapes['z'],
-                                    u.dtype)
-                vmag = ensure_plane(self.bcv_vals[2][ib], shapes['z'],
-                                    u.dtype)
-                wm_planes[ib] = wm.z_wall_wm_planes(
-                    cfg, grid, cU[k1], cU[k2], cV[k1], cV[k2], umag, vmag,
-                    umag, vmag, ib, self.index_wm)
-
-            def tauw_face(side):
-                krow = 0 if side == 0 else -1
-                u_c, v_c = corr_uv(u[krow], v[krow], pprow(krow))
-                if side in wm_planes:
-                    # |grad u_par| at the wall face IS the wall-model
-                    # Neumann value: q - ghost = +-dzc*bc (sign-free in
-                    # the squares below)
-                    bu, bv = wm_planes[side]
-                    dz = dzc[0] if side == 0 else dzc[nz]
-                    A = dz * bnd._bc_plane(bu, u, 0, u.dtype)
-                    B = dz * bnd._bc_plane(bv, v, 0, u.dtype)
-                else:
-                    A = u_c - self._ghost_row(self._zrec_uv[0], side, u_c)
-                    B = v_c - self._ghost_row(self._zrec_uv[1], side, v_c)
-                t1 = A + jnp.roll(A, 1, axis=1)
-                t2 = B + jnp.roll(B, 1, axis=0)
-                dzi = dzci[0] if side == 0 else dzci[nz]
-                return jnp.sqrt(t1 ** 2 + t2 ** 2) * dzi
-
-            tauw_lo = tauw_face(0)
-            tauw_hi = tauw_face(1)
-            zc = grid.zc[1:nz + 1]
-            dw_lo = zc if lo_wall else np.full(nz, np.inf)
-            dw_hi = (cfg.l[2] - zc) if hi_wall else np.full(nz, np.inf)
-            nearlo = (dw_lo <= dw_hi).astype(np.float64)
-            dw_1d = np.minimum(dw_lo, dw_hi)
-            if not lo_wall:
-                tauw_lo = tauw_hi
-            if not hi_wall:
-                tauw_hi = tauw_lo
-            kw.update(dw_1d=dw_1d, nearlo_1d=nearlo, tauw_lo=tauw_lo,
-                      tauw_hi=tauw_hi)
-        out = pk.fused_correc_updatep_smag(
-            u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk, dxi, dyi,
-            grid.dzci, grid.dzfi, cfg.visc, csd2, self._zrec_uv,
-            interpret=self._pallas_interpret, fu=fu, fv=fv,
-            alias_p=alias_p, **kw)
-        assert out is not None, 'fused_correc_smag gating inconsistency'
-        return out
-
-    def _dsmag_onepass_vals_ok(self):
-        """One-pass dsmag synthesizes the filtered-velocity BC fill
-        in-register from STATIC SCALAR recipes: wall-parallel 'D' values
-        (moving lids) are baked in as 2b - q offsets, but the wall-NORMAL
-        face values must be zero (no transpiration) and every value must
-        be a plain scalar — otherwise the two-pass pipeline (host-built
-        value-carrying fvel edge stacks) handles it."""
-        cfg = self.cfg
-        for ib in range(2):
-            checks = [(2, 2)]
-            if self._ywalled:
-                checks.append((1, 1))
-            for d, iv in checks:
-                if (not np.isscalar(cfg.bcvel[ib][d][iv])
-                        or float(cfg.bcvel[ib][d][iv]) != 0.0):
-                    return False
-            for d, ivs in ((2, (0, 1)), (1, (0, 2))):
-                for iv in ivs:
-                    if not np.isscalar(cfg.bcvel[ib][d][iv]):
-                        return False
-        return True
-
-    def _compute_dsmag_kernel(self, u, v, w, ue, ve, we, vlo=None):
-        """Dynamic Smagorinsky via the two-pass Pallas pipeline
-        (ops/pallas_dsmag.py); inputs are the corrected-fill interiors +
-        z-edge stacks.  The homogeneous-direction averaging finishes here
-        from the kernel's partial sums (ave0d/1d/2d, sgs.f90:388-614).
-        y-walled (duct/cavity) configs pass the y-edge bundles + per-side
-        wall flags through both levels."""
-        from .ops import pallas_dsmag as pds
-        cfg, grid, setup = self.cfg, self.grid, self.sgs_setup
-        nx, ny, nz = cfg.ng
-        wall_lo = setup.wall_flags[(0, 2)]
-        wall_hi = setup.wall_flags[(1, 2)]
-        ykw1 = {}
-        if self._ywalled:
-            (ydu, ydv, ydw), zyd = self._ybundle_vel(
-                u, v, w, vlo=vlo, is_correc=True)
-            ye1, yze1 = self._pack_ybundle([ydu, ydv, ydw], list(zyd))
-            ykw1 = dict(ye=ye1, yze=yze1,
-                        ywalls=(setup.wall_flags[(0, 1)],
-                                setup.wall_flags[(1, 1)]))
-        if self._dsmag_onepass:
-            return self._compute_dsmag_onepass(u, v, w, ue, ve, we, ykw1,
-                                               wall_lo, wall_hi)
-        if self._kernel_sharded:
-            from jax import shard_map
-            from jax.sharding import PartitionSpec as Pspec
-            F = Pspec(None, 'gy', 'gx')   # dsmag runs only at gx == 1
-            S = Pspec()                   # replicated (global y bundles)
-            halo = self._halo_y
-            ywalled = self._ywalled
-
-            def ds1_local(u_, v_, w_, ue_, ve_, we_, *yb):
-                ys = self._halo_strips([u_, v_, w_], [ue_, ve_, we_])
-                ykw = {}
-                if ywalled:
-                    ykw = dict(ye=yb[0], yze=yb[1], ywalls=ykw1['ywalls'],
-                               ywf=self._ywf_shard(u_.dtype))
-                return pds.fused_dsmag_level1(
-                    u_, v_, w_, ue_, ve_, we_, grid.dzci, grid.dzfi,
-                    cfg.dli[0], cfg.dli[1], wall_lo, wall_hi,
-                    interpret=self._pallas_interpret, ystrips=ys, **ykw)
-            yb1 = (ye1, yze1) if ywalled else ()
-            fm, fvel, lij, s0 = shard_map(
-                ds1_local, mesh=self.mesh,
-                in_specs=(F,) * 6 + (S,) * len(yb1),
-                out_specs=((F,) * 6, (F,) * 3, (F,) * 6, F),
-                check_vma=False)(u, v, w, ue, ve, we, *yb1)
-        else:
-            fm, fvel, lij, s0 = pds.fused_dsmag_level1(
-                u, v, w, ue, ve, we, grid.dzci, grid.dzfi,
-                cfg.dli[0], cfg.dli[1], wall_lo, wall_hi,
-                interpret=self._pallas_interpret, **ykw1)
-        fu, fv, fw = fvel
-        # filtered-velocity BC fill (bounduvw on the filtered field with the
-        # static planes, sgs.f90:256-257) as z-edge stacks
-        fue, fve, fwe = bnd.zedge_velocity(
-            fu, fv, fw, self.cbcvel, self.bcu_vals, self.bcv_vals,
-            self.bcw_vals, grid.dzc, grid.dzf, is_correc=False)
-        ykw2 = {}
-        if self._ywalled:
-            (yfu, yfv, yfw), zyf = self._ybundle_vel(
-                fu, fv, fw, is_correc=False)
-            ye2, yze2 = self._pack_ybundle([yfu, yfv, yfw], list(zyf))
-            ykw2 = dict(ye=ye2, yze=yze2, ywalls=ykw1['ywalls'])
-        alph2 = np.full(nz, 4.0)
-        if wall_lo:
-            alph2[0] = 2.52
-        if wall_hi:
-            alph2[-1] = 2.52
-        if self._kernel_sharded:
-            def ds2_local(fu_, fv_, fw_, fue_, fve_, fwe_, *rest):
-                ints, yb = rest[:13], rest[13:]
-                ys = self._halo_strips([fu_, fv_, fw_], [fue_, fve_, fwe_])
-                ykw = {}
-                if ywalled:
-                    ykw = dict(ye=yb[0], yze=yb[1], ywalls=ykw1['ywalls'],
-                               ywf=self._ywf_shard(fu_.dtype))
-                return pds.fused_dsmag_level2(
-                    fu_, fv_, fw_, fue_, fve_, fwe_,
-                    ints[0:6], ints[6:12], ints[12],
-                    alph2, grid.dzci, grid.dzfi, cfg.dli[0], cfg.dli[1],
-                    cfg.dsmag_avg, interpret=self._pallas_interpret,
-                    ystrips=ys, **ykw)
-            out_specs = F if cfg.dsmag_avg == 'cavity' else (F, F)
-            yb2 = (ye2, yze2) if ywalled else ()
-            out = shard_map(ds2_local, mesh=self.mesh,
-                            in_specs=(F,) * 19 + (S,) * len(yb2),
-                            out_specs=out_specs, check_vma=False)(
-                fu, fv, fw, fue, fve, fwe, *fm, *lij, s0, *yb2)
-        else:
-            out = pds.fused_dsmag_level2(
-                fu, fv, fw, fue, fve, fwe, fm, lij, s0, alph2,
-                grid.dzci, grid.dzfi, cfg.dli[0], cfg.dli[1], cfg.dsmag_avg,
-                interpret=self._pallas_interpret, **ykw2)
-        assert out is not None, 'fused_dsmag gating inconsistency'
-        if cfg.dsmag_avg == 'cavity':
-            return out
-        nump, denp = out
-        if cfg.dsmag_avg == 'duct':
-            ratio = (nump[..., 0] / denp[..., 0])[:, :, None]
-        else:
-            # per-(row, y-tile) scalars broadcast over (8, 128) tiles
-            num1 = jnp.sum(nump[:, ::8, 0], axis=1)
-            den1 = jnp.sum(denp[:, ::8, 0], axis=1)
-            if cfg.dsmag_avg == 'channel':
-                ratio = (num1 / den1)[:, None, None]
-            else:  # 'dit': dzf-weighted global mean (ave0d_dit, sgs.f90:388-431)
-                wz = jnp.asarray(grid.dzf[1:nz + 1] / cfg.l[2], dtype=u.dtype)
-                ratio = jnp.sum(num1 * wz) / jnp.sum(den1 * wz)
-        return jnp.maximum(s0 * ratio, 0.0)
-
-    def _compute_dsmag_onepass(self, u, v, w, ue, ve, we, ykw1,
-                               wall_lo, wall_hi):
-        """Single-pass dynamic Smagorinsky (pallas_dsmag.fused_dsmag_onepass):
-        the filtered-velocity BC fill, its y bundles, and every DS1->DS2
-        intermediate are synthesized in-register, so the host side is just
-        the homogeneous averaging reduction (ave0d/1d/2d, sgs.f90:388-614)
-        + visct = max(s0 * ratio, 0)."""
-        from .ops import pallas_dsmag as pds
-        cfg, grid = self.cfg, self.grid
-        nz = cfg.ng[2]
-        alph2 = np.full(nz, 4.0)
-        if wall_lo:
-            alph2[0] = 2.52
-        if wall_hi:
-            alph2[-1] = 2.52
-        # wall-parallel 'D' values of the filtered-velocity fill (moving
-        # lids; zero on non-wall faces), baked into the kernel's ghost
-        # recipes (gated scalar by _dsmag_onepass_vals_ok)
-        bvk = dict(
-            zvals=(float(self.bcu_vals[2][0]), float(self.bcu_vals[2][1]),
-                   float(self.bcv_vals[2][0]), float(self.bcv_vals[2][1])),
-            yvals=(float(self.bcu_vals[1][0]), float(self.bcu_vals[1][1]),
-                   float(self.bcw_vals[1][0]), float(self.bcw_vals[1][1])))
-        if self._kernel_sharded and getattr(self, '_dsmag_xext', False):
-            # 2D (gy, gx) pencil mesh: the one-pass kernel runs on
-            # materialized 64-lane x-halo extensions (the filter chain
-            # needs 3-deep x ghosts) with the averaging sums masked to
-            # the interior lanes; num/den reduce via psum so every shard
-            # sees the global ratio.  y-walled (duct/cavity) configs
-            # x-extend the ye bundles with the same cyclic ppermute (the
-            # bundle rows are periodic in x) and gate the in-kernel wall
-            # fixes per shard (ywf); 'duct' averaging (over x only) psums
-            # across 'gx' and applies the per-(z,y)-row ratio in-shard.
-            from jax import shard_map
-            from jax.sharding import PartitionSpec as Pspec
-            F = Pspec(None, 'gy', 'gx')
-            R = Pspec()
-            avg = cfg.dsmag_avg
-            ywalled = self._ywalled
-
-            def ds_local(u_, v_, w_, ue_, ve_, we_, *yb):
-                nxl = u_.shape[-1]
-                ext = [self._halo_x(a) for a in
-                       (u_, v_, w_, ue_, ve_, we_)]
-                ys = self._halo_strips(ext[0:3], ext[3:6])
-                ykw = {}
-                if ywalled:
-                    ykw = dict(ye=self._halo_x(yb[0]),
-                               yze=self._halo_x(yb[1]),
-                               ywalls=ykw1['ywalls'],
-                               ywf=self._ywf_shard(u_.dtype))
-                out = pds.fused_dsmag_onepass(
-                    *ext, alph2, grid.dzci, grid.dzfi,
-                    cfg.dli[0], cfg.dli[1], wall_lo, wall_hi,
-                    avg, interpret=self._pallas_interpret,
-                    ystrips=ys, x_interior=(64, nxl), **ykw, **bvk)
-                assert out is not None, 'dsmag xext gating inconsistency'
-                if avg == 'cavity':
-                    return out[..., 64:64 + nxl]
-                s0e, nump_, denp_ = out
-                if avg == 'duct':
-                    num = jax.lax.psum(nump_, 'gx')
-                    den = jax.lax.psum(denp_, 'gx')
-                    ratio = num[..., 0:1] / den[..., 0:1]
-                    return jnp.maximum(s0e[..., 64:64 + nxl] * ratio, 0.0)
-                num1 = jax.lax.psum(jnp.sum(nump_[:, ::8, 0], axis=1),
-                                    ('gy', 'gx'))
-                den1 = jax.lax.psum(jnp.sum(denp_[:, ::8, 0], axis=1),
-                                    ('gy', 'gx'))
-                return s0e[..., 64:64 + nxl], num1, den1
-            yb1 = (ykw1['ye'], ykw1['yze']) if ywalled else ()
-            yspec = (Pspec(None, None, 'gx'),) * len(yb1)
-            out_specs = F if avg in ('cavity', 'duct') else (F, R, R)
-            out = shard_map(ds_local, mesh=self.mesh,
-                            in_specs=(F,) * 6 + yspec,
-                            out_specs=out_specs, check_vma=False)(
-                u, v, w, ue, ve, we, *yb1)
-            if avg in ('cavity', 'duct'):
-                return out
-            s0, num1, den1 = out
-            if avg == 'channel':
-                ratio = (num1 / den1)[:, None, None]
-            else:  # 'dit' is not xext-eligible (periodic z); guard anyway
-                wz = jnp.asarray(grid.dzf[1:nz + 1] / cfg.l[2],
-                                 dtype=u.dtype)
-                ratio = jnp.sum(num1 * wz) / jnp.sum(den1 * wz)
-            return jnp.maximum(s0 * ratio, 0.0)
-        if self._kernel_sharded:
-            from jax import shard_map
-            from jax.sharding import PartitionSpec as Pspec
-            F = Pspec(None, 'gy', 'gx')   # gx == 1 on this branch
-            S = Pspec()                   # replicated (global y bundles)
-            ywalled = self._ywalled
-
-            def ds_local(u_, v_, w_, ue_, ve_, we_, *yb):
-                ys = self._halo_strips([u_, v_, w_], [ue_, ve_, we_])
-                ykw = {}
-                if ywalled:
-                    ykw = dict(ye=yb[0], yze=yb[1], ywalls=ykw1['ywalls'],
-                               ywf=self._ywf_shard(u_.dtype))
-                return pds.fused_dsmag_onepass(
-                    u_, v_, w_, ue_, ve_, we_, alph2, grid.dzci, grid.dzfi,
-                    cfg.dli[0], cfg.dli[1], wall_lo, wall_hi,
-                    cfg.dsmag_avg, interpret=self._pallas_interpret,
-                    ystrips=ys, fold_ratio=cfg.dsmag_avg == 'duct',
-                    **ykw, **bvk)
-            yb1 = (ykw1['ye'], ykw1['yze']) if ywalled else ()
-            out_specs = (F if cfg.dsmag_avg in ('cavity', 'duct')
-                         else (F, F, F))
-            out = shard_map(ds_local, mesh=self.mesh,
-                            in_specs=(F,) * 6 + (S,) * len(yb1),
-                            out_specs=out_specs, check_vma=False)(
-                u, v, w, ue, ve, we, *yb1)
-        else:
-            out = pds.fused_dsmag_onepass(
-                u, v, w, ue, ve, we, alph2, grid.dzci, grid.dzfi,
-                cfg.dli[0], cfg.dli[1], wall_lo, wall_hi, cfg.dsmag_avg,
-                interpret=self._pallas_interpret,
-                fold_ratio=cfg.dsmag_avg == 'duct', **ykw1, **bvk)
-        assert out is not None, 'fused_dsmag_onepass gating inconsistency'
-        if cfg.dsmag_avg in ('cavity', 'duct'):
-            # 'duct' rides the in-kernel ratio fold on these branches
-            # (every (z, y) row's x extent is locally complete)
-            return out
-        s0, nump, denp = out
-        if cfg.dsmag_avg == 'duct':
-            ratio = (nump[..., 0] / denp[..., 0])[:, :, None]
-        else:
-            num1 = jnp.sum(nump[:, ::8, 0], axis=1)
-            den1 = jnp.sum(denp[:, ::8, 0], axis=1)
-            if cfg.dsmag_avg == 'channel':
-                ratio = (num1 / den1)[:, None, None]
-            else:  # 'dit': dzf-weighted global mean (ave0d_dit)
-                wz = jnp.asarray(grid.dzf[1:nz + 1] / cfg.l[2],
-                                 dtype=u.dtype)
-                ratio = jnp.sum(num1 * wz) / jnp.sum(den1 * wz)
-        return jnp.maximum(s0 * ratio, 0.0)
 
     def _pad_scal(self, s):
         cfg = self.cfg
@@ -1677,576 +348,17 @@ class Simulation:
                                   self.bcs_vals, None, pad_filtered)
 
     # ------------------------------------------------------------------
-    def _advance_wall_planes(self, state, pp, ppe, we2, dtrk, xf,
-                             yv2=None, zyv2=None, zyw2=None, ypp=None,
-                             zypp=None, xu2=None, zxu2=None, zxw2=None,
-                             xpp=None, zxpp=None, xsec2=None, bcu_z=None):
-        """Advance the retained wall-face / wall-ghost planes (vlo)
-        through the padded correc sweep (correc.f90:45-67): the kept
-        planes' entries evolve with the plane-sized pressure-gradient
-        expressions, the attached entries are recipes of the evolved
-        interiors — mirroring pad_velocity's sequential x->y->z
-        semantics.  Keyword planes are the prediction/correc bundle
-        rows collected by _substep (wb dict); only the config class's
-        own entries are passed (x-walled / y-walled / both / neither).
-        xf: pp/ppe are x-spectral (the x-transform fusion) — the two
-        consumed rows are inverted here (tiny matmuls)."""
-        cfg, grid = self.cfg, self.grid
-        dxi, dyi = cfg.dli[0], cfg.dli[1]
-        dzci = grid.dzci
-        # lower-wall w face plane: the padded-row-0 entry of the correc
-        # ghost-range sweep (correc.f90:45-67), a plane-sized update
-        if xf:
-            pp0w, ppe0w = self._xinv_plane(pp[0]), self._xinv_plane(ppe[0])
-        else:
-            pp0w, ppe0w = pp[0], ppe[0]
-        wlo = we2[0] - dtrk * float(dzci[0]) * (pp0w - ppe0w)
-        if self._ywalled and self._xwalled:
-            # x+y-walled (closed box / true cavity / developing duct):
-            # the kept planes' ghost entries evolve through the padded
-            # correc sweep with recipe'd pressure corners; the attached
-            # (refilled-at-next-fill) entries come from recipes of the
-            # evolved interiors — mirroring pad_velocity's sequential
-            # x->y->z semantics plane by plane
-            dzci0 = float(dzci[0])
-            plx = (self.cbcpre[0], self.bcp_vals[0],
-                   (cfg.dl[0], cfg.dl[0]))
-            xr = lambda a: self._rec_ghosts(a, *plx)
-            # --- wlo (kept at the z fill: everything evolves) ---
-            w_ylo = zyw2[0, 0] - dtrk * dzci0 * (ypp[0, 0] - zypp[0, 0])
-            w_yhi = zyw2[0, 1] - dtrk * dzci0 * (ypp[0, 1] - zypp[0, 1])
-            w_xlo = zxw2[0][:, 0] - dtrk * dzci0 * (xpp[0, :, 0]
-                                                    - zxpp[0, :, 0])
-            w_xhi = zxw2[0][:, 1] - dtrk * dzci0 * (xpp[0, :, 1]
-                                                    - zxpp[0, :, 1])
-            zs2 = xsec2[1]           # prediction z-corner section
-            ppc = [xr(ypp[0, r]) for r in (0, 1)]
-            pzc = [xr(zypp[0, r]) for r in (0, 1)]
-            wc = [[zs2[0, r, 4 + s]
-                   - dtrk * dzci0 * (ppc[r][s] - pzc[r][s])
-                   for s in (0, 1)] for r in (0, 1)]
-            wlo = jnp.concatenate([w_ylo[None], wlo, w_yhi[None]],
-                                  axis=0)
-            cl = jnp.concatenate([wc[0][0][None], w_xlo, wc[1][0][None]])
-            ch = jnp.concatenate([wc[0][1][None], w_xhi, wc[1][1][None]])
-            wlo = jnp.concatenate([cl[:, None], wlo, ch[:, None]],
-                                  axis=1)
-            # --- vlo_v (kept at the y fill: x entries evolve, z
-            # entries refill by recipe at the next z pass — but the
-            # evolved values coincide and keep the committed form) ---
-            vlo_i = yv2[:, 0] - dtrk * dyi * (pp[:, 0, :] - ypp[:, 0])
-            v_zlo = zyv2[0, 0] - dtrk * dyi * (ppe[0][0] - zypp[0, 0])
-            v_zhi = zyv2[2, 0] - dtrk * dyi * (ppe[2][0] - zypp[2, 0])
-            xs2 = xsec2[0]
-            pi = xr(pp[:, 0, :])
-            pg = xr(ypp[:, 0, :])
-            v_x = [xs2[:, 0, 2 + s] - dtrk * dyi * (pi[s] - pg[s])
-                   for s in (0, 1)]
-            pzi = [xr(ppe[zr][0]) for zr in (0, 2)]
-            pzg = [xr(zypp[zr, 0]) for zr in (0, 2)]
-            vc = [[zs2[zr, 0, 2 + s]
-                   - dtrk * dyi * (pzi[i][s] - pzg[i][s])
-                   for s in (0, 1)] for i, zr in enumerate((0, 2))]
-            vlo_v = jnp.concatenate([v_zlo[None], vlo_i, v_zhi[None]],
-                                    axis=0)
-            cl = jnp.concatenate([vc[0][0][None], v_x[0], vc[1][0][None]])
-            ch = jnp.concatenate([vc[0][1][None], v_x[1], vc[1][1][None]])
-            vlo_v = jnp.concatenate([cl[:, None], vlo_v, ch[:, None]],
-                                    axis=1)
-            # --- ulo (attached at the x fill: y/z ghosts are recipes
-            # of the evolved interior) ---
-            ulo_i = xu2[:, :, 0] - dtrk * dxi * (pp[:, :, 0]
-                                                 - xpp[:, :, 0])
-            uy = self._rec_ghosts(
-                ulo_i, (self.cbcvel[0][1][0], self.cbcvel[1][1][0]),
-                self.bcu_vals[1], (cfg.dl[1], cfg.dl[1]))
-            ulo = jnp.concatenate([uy[0][:, None], ulo_i,
-                                   uy[1][:, None]], axis=1)
-            nzg = cfg.ng[2]
-            uz = self._rec_ghosts(
-                ulo, (self.cbcvel[0][2][0], self.cbcvel[1][2][0]),
-                self.bcu_vals[2],
-                (float(grid.dzc[0]), float(grid.dzc[nzg])), axis=0)
-            ulo = jnp.concatenate([uz[0][None], ulo, uz[1][None]],
-                                  axis=0)
-            vlo = (ulo, vlo_v, wlo)
-        elif self._ywalled:
-            # y-ghost entries of the w z=0 plane evolve through the
-            # padded correc sweep (they feed the next substep's corner
-            # stacks); the v lower-wall face plane likewise
-            dzci0 = float(dzci[0])
-            w_ylo = zyw2[0, 0] - dtrk * dzci0 * (ypp[0, 0] - zypp[0, 0])
-            w_yhi = zyw2[0, 1] - dtrk * dzci0 * (ypp[0, 1] - zypp[0, 1])
-            wlo = jnp.concatenate([w_ylo[None], wlo, w_yhi[None]], axis=0)
-            wlo = jnp.concatenate([wlo[:, -1:], wlo, wlo[:, :1]], axis=1)
-            # v wall-face plane: v(y=0) = v_pred(y=0) - dt dyi (pp(1)-pp(0))
-            # (ypp/zypp arrive already inverted under xf — _substep
-            # transforms the bundle rows before packing; pp/ppe rows are
-            # still spectral there and are inverted here)
-            ppj0 = self._xinv_plane(pp[:, 0, :]) if xf else pp[:, 0, :]
-            ppe0 = self._xinv_plane(ppe[0]) if xf else ppe[0]
-            ppe2 = self._xinv_plane(ppe[2]) if xf else ppe[2]
-            vlo_i = yv2[:, 0] - dtrk * dyi * (ppj0 - ypp[:, 0])
-            v_zlo = zyv2[0, 0] - dtrk * dyi * (ppe0[0] - zypp[0, 0])
-            v_zhi = zyv2[2, 0] - dtrk * dyi * (ppe2[0] - zypp[2, 0])
-            vlo_v = jnp.concatenate([v_zlo[None], vlo_i, v_zhi[None]],
-                                    axis=0)
-            vlo_v = jnp.concatenate([vlo_v[:, -1:], vlo_v, vlo_v[:, :1]],
-                                    axis=1)
-            vlo = (state.vlo[0], vlo_v, wlo)
-        elif self._xwalled:
-            # x-ghost entries of the w z=0 plane through the corner
-            # stacks; the u wall-face plane (padded x 0) evolves
-            # through the padded correc sweep (correc.f90:45-67)
-            dzci0 = float(dzci[0])
-            w_xlo = zxw2[0][:, 0] - dtrk * dzci0 * (xpp[0, :, 0]
-                                                    - zxpp[0, :, 0])
-            w_xhi = zxw2[0][:, 1] - dtrk * dzci0 * (xpp[0, :, 1]
-                                                    - zxpp[0, :, 1])
-            wlo = jnp.concatenate([w_xlo[:, None], wlo, w_xhi[:, None]],
-                                  axis=1)
-            wlo = jnp.concatenate([wlo[-1:], wlo, wlo[:1]], axis=0)
-            ulo_i = xu2[:, :, 0] - dtrk * dxi * (pp[:, :, 0]
-                                                 - xpp[:, :, 0])
-            u_zlo = zxu2[0][:, 0] - dtrk * dxi * (ppe[0][:, 0]
-                                                  - zxpp[0, :, 0])
-            u_zhi = zxu2[2][:, 0] - dtrk * dxi * (ppe[2][:, 0]
-                                                  - zxpp[2, :, 0])
-            ulo = jnp.concatenate([u_zlo[None], ulo_i, u_zhi[None]],
-                                  axis=0)
-            ulo = jnp.concatenate([ulo[:, -1:], ulo, ulo[:, :1]], axis=1)
-            # (z-ghost, y-ghost) corners: the sequential fill applies the
-            # z recipe at the face's y-ghost columns, where a PLANE-valued
-            # b (z wall model) keeps its untouched promoted static ghost
-            # entries — the y-wrap of the interior recipe values cannot
-            # reproduce that (4 scalar entries; scalar b wraps exactly)
-            if bcu_z is not None and not (np.isscalar(bcu_z[0])
-                                          and np.isscalar(bcu_z[1])):
-                nzg = cfg.ng[2]
-                lts = (self.cbcvel[0][2][0], self.cbcvel[1][2][0])
-                for ib, zg, zin in ((0, 0, 1), (1, nzg + 1, nzg)):
-                    b = bcu_z[ib]
-                    drv = float(self.grid.dzc[0 if ib == 0 else nzg])
-                    for yg in (0, -1):
-                        bval = (float(b) if np.isscalar(b)
-                                else b[yg, 0])
-                        first = ulo[zin, yg]
-                        if lts[ib] == 'D':
-                            val = 2.0 * bval - first
-                        elif ib == 0:
-                            val = -drv * bval + first
-                        else:
-                            val = drv * bval + first
-                        ulo = ulo.at[zg, yg].set(val)
-            vlo = (ulo, state.vlo[1], wlo)
-        else:
-            # the x/y planes are unused under periodic x/y
-            # (pad_velocity's 'P' branch never reads vlo)
-            wlo = jnp.concatenate([wlo[-1:], wlo, wlo[:1]], axis=0)
-            wlo = jnp.concatenate([wlo[:, -1:], wlo, wlo[:, :1]], axis=1)
-            vlo = (state.vlo[0], state.vlo[1], wlo)
-        return vlo
-
-    def _mom_kernel_inputs(self, state, u, v, w, p, visct, hs, hsc,
-                           bc_imp=None):
-        """Assemble the momentum kernel's ghost inputs for this config
-        class: z-edge stacks (reused from the previous substep's
-        post-correc fill via state.zq), plus the xe ghost-column bundles
-        (x-walled) and the packed ye row bundles (y-walled, with the
-        optional visct/scalar rows and the x+y corner section).  bc_imp:
-        beginning-of-substep BC planes already computed by the impdiff
-        path (reused for the wm ybcs).  Returns (ue, ve, we, pe, se,
-        ye, yze, xeb, xzeb)."""
-        cfg, grid = self.cfg, self.grid
-        if bc_imp is not None:
-            bcu, bcv, bcw = bc_imp
-        if state.zq is not None:
-            ue, ve, we = state.zq
-        else:
-            bcu0, bcv0, bcw0 = self._dynamic_bcs(u, v, w)
-            ue, ve, we = self._zedge_vel(u, v, w, bcu0, bcv0, bcw0,
-                                         vlo=state.vlo, is_correc=True)
-        pe = self._zedge_p(p)
-        # sgstype 'none': visct == 0 — its HBM stream, edge stacks and
-        # eddy terms are elided from the kernel (has_sgs=False)
-        hs = cfg.sgstype != 'none'
-        se = self._zedge_s(visct) if hs else None
-        ye = yze = None
-        xeb = xzeb = None
-        wm_bcs = None
-        if self.has_wm and (self._xwalled or self._ywalled):
-            # wm-updated Neumann planes for the bundle builders below —
-            # recomputed here, a pure function of (u, v, w) identical to
-            # the values the previous substep's zq stacks were built with
-            wm_bcs = ((bcu, bcv, bcw) if cfg.impdiff
-                      else self._dynamic_bcs(u, v, w))
-        if self._xwalled:
-            # x-ghost-column bundles of the same (post-correc) fill —
-            # the xe protocol with host-BUILT columns (no ppermute);
-            # with a z wall model the z-corner stacks read the wm planes'
-            # x-ghost columns (boundary._corner_cols)
-            (xcu, xcv, xcw), zxc = self._xbundle_vel(
-                u, v, w, vlo=state.vlo, is_correc=True, bcs=wm_bcs)
-            xcp, zxcp = bnd.xedge_scalar(p, self.cbcpre, self.bcp_vals,
-                                         cfg.dl, grid.dzc)
-            cstk, zcstk = [xcu, xcv, xcw], list(zxc)
-            if hs:
-                cbcs_s = tuple((cfg.cbcsgs[0][d], cfg.cbcsgs[1][d])
-                               for d in range(3))
-                xcs, zxcs = bnd.xedge_scalar(visct, cbcs_s,
-                                             self.bcs_vals, cfg.dl,
-                                             grid.dzc)
-                cstk.append(xcs)
-                zcstk.append(zxcs)
-            cstk.append(xcp)
-            zcstk.append(zxcp)
-            if hsc:
-                # scalar x-ghost columns ride the bundle after p (lane
-                # base 2m follows the kernel's window order u, v, w,
-                # [visct], p, sca)
-                cbcsc = tuple((cfg.cbcscal[0][d], cfg.cbcscal[1][d])
-                              for d in range(3))
-                bvsc = tuple((float(cfg.bcscal[0][d]),
-                              float(cfg.bcscal[1][d])) for d in range(3))
-                xcsc, zxcsc = bnd.xedge_scalar(state.s, cbcsc, bvsc,
-                                               cfg.dl, grid.dzc)
-                cstk.append(xcsc)
-                zcstk.append(zxcsc)
-            xeb = self._xe_pack_cols(cstk)
-            xzeb = self._xe_pack_cols(zcstk)
-        if self._ywalled:
-            # y-wall ghost-row bundles of the same (post-correc) fill;
-            # with a y/z wall model the bundles carry the wm-updated
-            # Neumann planes (xbcs above)
-            (yu, yv, yw), zy = self._ybundle_vel(
-                u, v, w, vlo=state.vlo, is_correc=True, bcs=wm_bcs)
-            yp, zyp = self._ybundle_p(p)
-            ystk, zstk = [yu, yv, yw], list(zy)
-            if hs:
-                ys, zys = self._ybundle_s(visct)
-                ystk.append(ys)
-                zstk.append(zys)
-            ystk, zstk = ystk + [yp], zstk + [zyp]
-            if hsc:
-                # scalar rows ride the bundle after p (fwins order
-                # u, v, w, [visct], p, sca — ylane base 3*m)
-                ysc, zysc = self._ybundle_scal(state.s)
-                ystk, zstk = ystk + [ysc], zstk + [zysc]
-            xsec = None
-            if self._xwalled:
-                xsec = self._xye_section(
-                    self._xye_entries(cstk, with_p=True, has_scal=hsc),
-                    vlo=state.vlo, is_correc=True)
-            ye, yze = self._pack_ybundle(ystk, zstk, xsec=xsec)
-        return ue, ve, we, pe, se, ye, yze, xeb, xzeb
-
-    def _mom_kernel_sharded(self, state, u, v, w, p, visct,
-                            ue, ve, we, se, pe, ye, yze, ru_o, rv_o, rw_o,
-                            f1, f2, split, hs, hsc, first, nout,
-                            xeb=None, xzeb=None):
-        """Dispatch the fused momentum+RK kernel under shard_map for this
-        mesh class: 1D (gy) slab meshes take packed 8-row ppermute halo
-        STRIPS; 2D (gx>1) pencil meshes take (ny_local+16)-extended arrays
-        + packed ppermute'd x ghost-column bundles (xe protocol), with the
-        y-walled variants passing the replicated global ye bundles,
-        per-shard wall flags, and the xe wall-row patches.  x-WALLED 1D
-        slab meshes pass the host-built x-ghost-column bundles (xeb/xzeb,
-        y-sharded) riding the strips mode with their own 8-row packs."""
-        from .ops import pallas_kernels as pk
+    def _momentum(self, state, u, v, w, p, visct, f1, f2, first):
+        """Momentum RHS + RK update (+ scalar advance) on padded fields
+        (mom.f90 + rk.f90).  Returns (u, v, w, rhs_old, (rud, rvd, rwd),
+        scal_state, (bcu, bcv, bcw)) -- the beginning-of-substep BC
+        planes feed the CN Helmholtz RHS."""
         cfg, grid = self.cfg, self.grid
         dxi, dyi = cfg.dli[0], cfg.dli[1]
         dzci, dzfi = grid.dzci, grid.dzfi
-        visc = cfg.visc
-        halo = self._halo_y
-        nfl = (10 if hs else 8) + 2 * hsc
-        xwalled = self._xwalled
-
-        def mom_local(*a):
-            if hs:
-                (u_, v_, w_, s_, p_,
-                 ue_, ve_, we_, se_, pe_) = a[0:10]
-                na = 10
-            else:
-                u_, v_, w_, p_, ue_, ve_, we_, pe_ = a[0:8]
-                s_ = se_ = None
-                na = 8
-            sca_ = scae_ = None
-            if hsc:
-                sca_, scae_ = a[na:na + 2]
-            rest = a[nfl:]
-            xeb_ = xzeb_ = None
-            if xwalled:
-                xeb_, xzeb_ = rest[0], rest[1]
-                rest = rest[2:]
-            ye_ = yze_ = ywf_ = None
-            if self._ywalled:
-                # GLOBAL y-edge bundle, replicated: only the
-                # wall shards' rows are read (gated by ywf)
-                r123 = rest[:-4]
-                ye_, yze_, f1_, f2_ = rest[-4:]
-                ywf_ = self._ywf_shard(u_.dtype)
-            else:
-                r123, (f1_, f2_) = rest[:-2], rest[-2:]
-            rso_ = None
-            if r123 and hsc:
-                r123, rso_ = r123[:-1], r123[-1]
-            flds = ([u_, v_, w_] + ([s_] if hs else []) + [p_]
-                    + ([sca_] if hsc else []))
-            efls = ([ue_, ve_, we_] + ([se_] if hs else [])
-                    + [pe_] + ([scae_] if hsc else []))
-            if not self._gx_sharded:
-                # 1D decomposition: 8-row halo STRIPS, no
-                # extended-array materialization.  x-walled: the
-                # host-built xe column bundle rides with its own
-                # cyclic-ppermute strip pack (y-periodic gate)
-                ys = self._halo_strips(flds, efls)
-                xkw = {}
-                if xwalled:
-                    xkw = dict(xe=xeb_, xze=xzeb_,
-                               xstrips=self._halo_strips([xeb_],
-                                                         [xzeb_]),
-                               xye=self._ywalled)
-                return pk.fused_mom_rk(
-                    u_, v_, w_, s_, p_, ue_, ve_, we_, se_, pe_,
-                    *(r123 or (None,) * 3), dzci, dzfi, f1_, f2_,
-                    visc, dxi, dyi, cfg.bforce,
-                    interpret=self._pallas_interpret,
-                    split=split, ystrips=ys,
-                    ye=ye_, yze=yze_,
-                    ywalls=(True, True) if self._ywalled
-                    else (False, False), ywf=ywf_,
-                    has_ruo=not first, has_sgs=hs,
-                    sca=sca_, scae=scae_, rso=rso_,
-                    scal_params=(cfg.visc / cfg.pr, cfg.ssource)
-                    if hsc else (0.0, 0.0), **xkw)
-            # 2D (gx>1) mesh: extended arrays + packed x
-            # ghost-column bundles.  y-walled configs ride the
-            # SAME in-kernel ye-bundle fixes as the 1D path —
-            # only the xe packs need host-side patching: their
-            # wall-ghost rows (7 / 8+ny) come from the x
-            # neighbors' bundle rows, and v's wall-face slot is
-            # rewritten before packing so edge lanes see what
-            # the in-kernel ystag fix presents locally.
-            hl = lambda q: None if q is None else halo(q)
-            ykw = {}
-            if self._ywalled:
-                ye_l = self._yslice_gx(ye_)
-                yze_l = self._yslice_gx(yze_)
-                vx = self._ystag_rw_gx(v_, ye_l[:, 5])
-                vex = self._ystag_rw_gx(ve_, yze_l[:, 5])
-                fx = ([u_, vx, w_] + ([s_] if hs else []) + [p_]
-                      + ([sca_] if hsc else []))
-                ex = ([ue_, vex, we_] + ([se_] if hs else [])
-                      + [pe_] + ([scae_] if hsc else []))
-                xe, xze = self._xe_packs_ywalled_gx(
-                    fx, ex, ye_, yze_, ye_l, yze_l,
-                    xeb=xeb_ if xwalled else None, xzeb=xzeb_,
-                    v_idx=1)
-                ykw = dict(ye=ye_l, yze=yze_l,
-                           ywalls=(True, True),
-                           ywf=self._ywf_shard(u_.dtype))
-            else:
-                xe_p, xze_p = self._xe_pack(flds), self._xe_pack(efls)
-                if xwalled:
-                    xe_p = self._xe_wall_patch(xe_p, xeb_, len(flds))
-                    xze_p = self._xe_wall_patch(xze_p, xzeb_, len(flds))
-                xe, xze = halo(xe_p), halo(xze_p)
-            return pk.fused_mom_rk(
-                halo(u_), halo(v_), halo(w_), hl(s_), halo(p_),
-                halo(ue_), halo(ve_), halo(we_), hl(se_),
-                halo(pe_), *(r123 or (None,) * 3),
-                dzci, dzfi, f1_, f2_,
-                visc, dxi, dyi, cfg.bforce,
-                interpret=self._pallas_interpret, y_ext=True,
-                split=split, xe=xe, xze=xze,
-                has_ruo=not first, has_sgs=hs,
-                sca=hl(sca_), scae=hl(scae_), rso=rso_,
-                scal_params=(cfg.visc / cfg.pr, cfg.ssource)
-                if hsc else (0.0, 0.0), **ykw)
-        rargs = () if first else (ru_o, rv_o, rw_o)
-        if hsc and not first:
-            rargs = rargs + (state.dsdt_old,)
-        fargs = ((u, v, w, visct, p, ue, ve, we, se, pe) if hs
-                 else (u, v, w, p, ue, ve, we, pe))
-        if hsc:
-            fargs = fargs + (state.s, self._zedge_scal(state.s))
-        xargs = (xeb, xzeb) if xwalled else ()
-        sargs = (ye, yze, f1, f2) if self._ywalled else (f1, f2)
-        return self._smap(mom_local, nfl, len(sargs), nout,
-                          n_xeb_in=len(xargs),
-                          n_field2_in=len(rargs))(
-            *fargs, *xargs, *rargs, *sargs)
-
-    def _fillps_sharded(self, u, v, w, ue2, ve2, we2, ye2, yze2, dtrk,
-                        xeb=None, xzeb=None):
-        """fused_fillps under shard_map: 1D slab meshes take halo strips
-        (x-walled: + the host-built y-sharded xe bundles with their own
-        strip packs); 2D (gx>1) meshes take extended arrays + xe bundles
-        with y-wall row patches (same protocol recipe as
-        _mom_kernel_sharded)."""
-        from .ops import pallas_kernels as pk
-        cfg, grid = self.cfg, self.grid
-        dxi, dyi = cfg.dli[0], cfg.dli[1]
-        dzfi = grid.dzfi
-        halo = self._halo_y
-        xwalled = self._xwalled
-
-        def fillps_local(u_, v_, w_, ue_, ve_, we_, *extra):
-            xeb_ = xzeb_ = None
-            if xwalled:
-                xeb_, xzeb_ = extra[0], extra[1]
-                extra = extra[2:]
-            if self._ywalled:
-                ye_, yze_, dti_ = extra
-                ywf_ = self._ywf_shard(u_.dtype)
-            else:
-                (dti_,) = extra
-                ye_ = yze_ = ywf_ = None
-            if not self._gx_sharded:
-                ys = self._halo_strips([u_, v_, w_],
-                                       [ue_, ve_, we_])
-                xkw = {}
-                if xwalled:
-                    xkw = dict(xe=xeb_, xze=xzeb_,
-                               xstrips=self._halo_strips([xeb_],
-                                                         [xzeb_]),
-                               xye=self._ywalled)
-                return pk.fused_fillps(
-                    u_, v_, w_, ue_, ve_, we_, dzfi, dti_,
-                    dxi, dyi, interpret=self._pallas_interpret,
-                    ystrips=ys, ye=ye_, yze=yze_,
-                    ywalls=(True, True) if self._ywalled
-                    else (False, False), ywf=ywf_, **xkw)
-            ykw = {}
-            if self._ywalled:
-                ye_l = self._yslice_gx(ye_)
-                yze_l = self._yslice_gx(yze_)
-                vx = self._ystag_rw_gx(v_, ye_l[:, 5])
-                vex = self._ystag_rw_gx(ve_, yze_l[:, 5])
-                xe, xze = self._xe_packs_ywalled_gx(
-                    [u_, vx, w_], [ue_, vex, we_], ye_, yze_,
-                    ye_l, yze_l, xeb=xeb_ if xwalled else None,
-                    xzeb=xzeb_, v_idx=1)
-                ykw = dict(ye=ye_l, yze=yze_l,
-                           ywalls=(True, True),
-                           ywf=self._ywf_shard(u_.dtype))
-            else:
-                xe_p = self._xe_pack([u_, v_, w_])
-                xze_p = self._xe_pack([ue_, ve_, we_])
-                if xwalled:
-                    xe_p = self._xe_wall_patch(xe_p, xeb_, 3)
-                    xze_p = self._xe_wall_patch(xze_p, xzeb_, 3)
-                xe, xze = halo(xe_p), halo(xze_p)
-            return pk.fused_fillps(
-                halo(u_), halo(v_), halo(w_), halo(ue_),
-                halo(ve_), halo(we_), dzfi, dti_, dxi, dyi,
-                interpret=self._pallas_interpret, y_ext=True,
-                xe=xe, xze=xze, **ykw)
-        fxargs = (xeb, xzeb) if xwalled else ()
-        fsargs = ((ye2, yze2, 1.0 / dtrk) if self._ywalled
-                  else (1.0 / dtrk,))
-        return self._smap(fillps_local, 6, len(fsargs), 1,
-                          n_xeb_in=len(fxargs))(
-            u, v, w, ue2, ve2, we2, *fxargs, *fsargs)
-
-    def _correc_sharded(self, u, v, w, pp, p, we2, ppe, ycor, yzcor,
-                        dtrk, alpha, imp_kw, first, xeb=None, xzeb=None):
-        """fused_correc_updatep under shard_map (same mesh-class protocol
-        recipe as _fillps_sharded); returns (u, v, w, p)."""
-        from .ops import pallas_kernels as pk
-        cfg, grid = self.cfg, self.grid
-        dxi, dyi = cfg.dli[0], cfg.dli[1]
-        dzci = grid.dzci
-        halo = self._halo_y
-        xwalled = self._xwalled
-
-        def correc_local(u_, v_, w_, pp_, p_, we_, ppe_, *ex):
-            xeb_ = xzeb_ = None
-            if xwalled:
-                xeb_, xzeb_ = ex[0], ex[1]
-                ex = ex[2:]
-            if self._ywalled:
-                ycor_, yzcor_, dt_, al_ = ex
-                ywf_ = self._ywf_shard(u_.dtype)
-            else:
-                dt_, al_ = ex
-                ycor_ = yzcor_ = ywf_ = None
-            if not self._gx_sharded:
-                ys = self._halo_strips([w_, pp_], [we_, ppe_])
-                xkw = {}
-                if xwalled:
-                    xkw = dict(xe=xeb_, xze=xzeb_,
-                               xstrips=self._halo_strips([xeb_],
-                                                         [xzeb_]),
-                               xye=self._ywalled)
-                return pk.fused_correc_updatep(
-                    u_, v_, w_, pp_, p_, we_, ppe_, dt_,
-                    dxi, dyi, dzci,
-                    interpret=self._pallas_interpret,
-                    alpha=al_, ystrips=ys,
-                    ye=ycor_, yze=yzcor_,
-                    ywalls=(True, True) if self._ywalled
-                    else (False, False), ywf=ywf_,
-                    alias_p=not first, **imp_kw, **xkw)
-            ykw = {}
-            if self._ywalled:
-                # the gx>1 y-walled correc needs the SAME in-kernel ye
-                # fixes as the 1D path (sliced bundle rows + ywf): the
-                # plain halo extension puts cyclic WRAP rows above the
-                # wall shard's pp window, and v's face slot must enter
-                # the correction from the prediction fill's rewrite row
-                # (bundle row 8), not the raw RK value.  y-symmetric
-                # flows (duct startup) mask the wrap read exactly —
-                # caught by the x+y-walled test, which breaks the
-                # symmetry (test_xywalled_kernel_2d_mesh_matches_single).
-                # xye stays False: the sliced bundle's lanes are the
-                # shard's x block, NOT section lanes, on ix>0 shards;
-                # the xe packs' wall rows are host-patched instead
-                # (_xe_packs_ywalled_gx).
-                ycor_l = self._yslice_gx(ycor_)
-                yzcor_l = self._yslice_gx(yzcor_)
-                # bundle carries 3 fields (w, pp, v) -> the xe corner
-                # section rides at row base 9, while the pack holds 2
-                xe, xze = self._xe_packs_ywalled_gx(
-                    [w_, pp_], [we_, ppe_], ycor_, yzcor_,
-                    ycor_l, yzcor_l, xeb=xeb_ if xwalled else None,
-                    xzeb=xzeb_, nb=3)
-                ykw = dict(ye=ycor_l, yze=yzcor_l,
-                           ywalls=(True, True), ywf=ywf_)
-            else:
-                xe_p = self._xe_pack([w_, pp_])
-                xze_p = self._xe_pack([we_, ppe_])
-                if xwalled:
-                    xe_p = self._xe_wall_patch(xe_p, xeb_, 2)
-                    xze_p = self._xe_wall_patch(xze_p, xzeb_, 2)
-                xe, xze = halo(xe_p), halo(xze_p)
-            return pk.fused_correc_updatep(
-                u_, v_, halo(w_), halo(pp_), p_, halo(we_),
-                halo(ppe_), dt_, dxi, dyi, dzci,
-                interpret=self._pallas_interpret, y_ext=True,
-                alpha=al_, xe=xe, xze=xze,
-                alias_p=not first, **ykw, **imp_kw)
-        cxargs = (xeb, xzeb) if xwalled else ()
-        csargs = ((ycor, yzcor, dtrk, alpha) if self._ywalled
-                  else (dtrk, alpha))
-        return self._smap(correc_local, 7, len(csargs), 4,
-                          n_xeb_in=len(cxargs))(
-            u, v, w, pp, p, we2, ppe, *cxargs, *csargs)
-
-    def _mom_rhs_xla(self, state, u, v, w, p, visct, f1, f2, f12, first,
-                     ru_o, rv_o, rw_o):
-        """XLA expression-path momentum RHS + RK update (+ scalar advance):
-        the padded-field fallback for configs outside the kernel gates
-        (mom.f90 + rk.f90 semantics, shared formula cores with the
-        kernels via ops/stencil).  Returns (u, v, w, rhs_old,
-        (rud, rvd, rwd), scal_state, (bcu, bcv, bcw)) -- the
-        beginning-of-substep BC planes feed the CN Helmholtz RHS."""
-        cfg, grid = self.cfg, self.grid
-        dxi, dyi = cfg.dli[0], cfg.dli[1]
-        dzci, dzfi = grid.dzci, grid.dzfi
-        visc = cfg.visc
+        f12 = f1 + f2
+        ru_o, rv_o, rw_o = state.rhs_old
         scal_state = None
-        rud = rvd = rwd = None
         # ghosts of the current state (same fill the previous substep left)
         bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
         up, vp, wp, _ = self._pad_vel(u, v, w, bcu, bcv, bcw,
@@ -2260,7 +372,7 @@ class Simulation:
         # zero) eddy-stress terms and the visct ghost fill
         with jax.named_scope('momentum_rhs'):
             (eu, exyu, ezu), (ev, exyv, ezv), (ew, exyw, ezw) = \
-                st.momentum_rhs(up, vp, wp, sp, visc, dxi, dyi,
+                st.momentum_rhs(up, vp, wp, sp, cfg.visc, dxi, dyi,
                                 dzci, dzfi, with_sgs=hs)
         if not cfg.impdiff:
             ru, rv, rw = eu + exyu + ezu, ev + exyv + ezv, ew + exyw + ezw
@@ -2304,127 +416,54 @@ class Simulation:
         return (u, v, w, (ru, rv, rw), (rud, rvd, rwd), scal_state,
                 (bcu, bcv, bcw))
 
-
-    def _bulk_forcing(self, state, u, v, w, mom_sums):
+    def _bulk_forcing(self, u, v, w):
         """Bulk-velocity forcing controller (rk.f90:197-222 +
-        mom.f90:311-335).  On the kernel path the means come from the
-        momentum kernel's partial plane sums and the constants are
-        DEFERRED: folded into the projection kernel (explicit path --
-        the forcing cancels in the divergence along periodic
-        directions), into the CN Helmholtz RHS shift (impdiff_1d
-        fold), or added plainly (full-3D fold).  Returns
-        (u, v, w, f, defer_f)."""
+        mom.f90:311-335).  Returns (u, v, w, f)."""
         cfg = self.cfg
         f = [jnp.zeros((), u.dtype)] * 3
-        defer_f = (self.use_pallas_mom
-                   and getattr(self, '_defer_forcing', False)
-                   and len(mom_sums) > 0)
-        fold_f = (self.use_pallas_mom and self._cn_fold
-                  and not defer_f and len(mom_sums) > 0)
-        if defer_f or fold_f:
-            # means from the momentum kernel's partial plane sums; the
-            # constants are folded into the projection kernel (explicit
-            # path: the forcing cancels in the divergence along periodic
-            # directions) or into the CN Helmholtz RHS shift (impdiff_1d
-            # fold) / a plain add (full-3D fold)
-            gvr = jnp.asarray(self.gvr_f, u.dtype)
-            si = 0
-            if cfg.is_forced[0]:
-                f[0] = cfg.velf[0] - jnp.dot(
-                    jnp.sum(mom_sums[si][:, ::8, 0], axis=1), gvr)
-                si += 1
-            if cfg.is_forced[1]:
-                f[1] = cfg.velf[1] - jnp.dot(
-                    jnp.sum(mom_sums[si][:, ::8, 0], axis=1), gvr)
-            if fold_f and not self._cn_shift_forcing:
-                # full-3D CN path: no solve-shift plumbing — plain add
-                # (reference order preserved: forcing before the solves)
-                if cfg.is_forced[0]:
-                    u = u + f[0]
-                if cfg.is_forced[1]:
-                    v = v + f[1]
-        else:
-            if cfg.is_forced[0]:
-                f[0] = cfg.velf[0] - st.bulk_mean(u, self.gvr_f)
-                u = u + f[0]
-            if cfg.is_forced[1]:
-                f[1] = cfg.velf[1] - st.bulk_mean(v, self.gvr_f)
-                v = v + f[1]
-            if cfg.is_forced[2]:
-                f[2] = cfg.velf[2] - st.bulk_mean(w, self.gvr_c)
-                w = w + f[2]
-        return u, v, w, f, defer_f
+        if cfg.is_forced[0]:
+            f[0] = cfg.velf[0] - st.bulk_mean(u, self.gvr_f)
+            u = u + f[0]
+        if cfg.is_forced[1]:
+            f[1] = cfg.velf[1] - st.bulk_mean(v, self.gvr_f)
+            v = v + f[1]
+        if cfg.is_forced[2]:
+            f[2] = cfg.velf[2] - st.bulk_mean(w, self.gvr_c)
+            w = w + f[2]
+        return u, v, w, f
 
-    def _cn_stage(self, u, v, w, bcu, bcv, bcw, rud, rvd, rwd,
-                  f, f12, alpha):
+    def _cn_stage(self, u, v, w, bcu, bcv, bcw, rud, rvd, rwd, f12, alpha):
         """Crank-Nicolson Helmholtz solves (main.f90:423-491): the
-        implicit-diffusion viscous solves per velocity component --
-        z-only aliased Thomas passes with in-kernel boundary planes
-        and forcing shift (impdiff_1d) or the full-3D per-component
-        alpha-scaled pipelines.  No-op when impdiff is off."""
+        implicit-diffusion viscous solve per velocity component, z-only
+        (impdiff_1d) or full 3D.  No-op when impdiff is off."""
         cfg, grid = self.cfg, self.grid
-        if cfg.impdiff:
-            # Crank–Nicolson Helmholtz solves (main.f90:423-491); with the
-            # kernel CN fold the 0.5*f12*rd subtraction already happened
-            # in-register inside the momentum kernel (rud is None then)
-            if rud is not None:
-                u = u - 0.5 * f12 * rud
-                v = v - 0.5 * f12 * rvd
-                w = w - 0.5 * f12 * rwd
-            for ivel, (fld, bcf) in enumerate(((u, bcu), (v, bcv), (w, bcw))):
-                cbc = tuple((self.cbcvel[0][d][ivel], self.cbcvel[1][d][ivel])
-                            for d in range(3))
-                cf = self.c_or_f[ivel]
-                planes = poisson.rhs_bound_planes_dyn(cfg, grid, cbc, cf, bcf)
-                planes = {k: alpha * v_ for k, v_ in planes.items()}
-                if cfg.impdiff_1d:
-                    planes = {k: (v_ if k[0] == 'z' else jnp.zeros_like(v_))
-                              for k, v_ in planes.items()}
-                cn_kernel_bc = (cfg.impdiff_1d
-                                and not self.use_pallas_cn_sharded)
-                if not cn_kernel_bc:
-                    fld = poisson.add_rhs_bound(cfg, cf, cbc, fld, planes)
-                if cfg.impdiff_1d:
-                    shift = (f[ivel]
-                             if self._cn_shift_forcing and cfg.is_forced[ivel]
-                             else None)
-                    if self.use_pallas_cn_sharded:
-                        fld = poisson.solve_z_only_sharded(
-                            self.solver_vel[ivel], fld, alpha, self.mesh,
-                            pallas_interpret=self._pallas_interpret)
-                    else:
-                        # the z-face planes ride the Thomas pass (rows 0 /
-                        # n_solve-1 in-register); x/y planes are zeroed in
-                        # the _IMPDIFF_1D split above, so add_rhs_bound is
-                        # fully absorbed
-                        fld = poisson.solve_z_only(
-                            self.solver_vel[ivel], fld, alpha,
-                            pallas=self.use_pallas_cn
-                            and self.mesh is None,
-                            pallas_interpret=self._pallas_interpret,
-                            shift=shift,
-                            bc_planes=(planes[('z', 0)], planes[('z', 1)]))
-                else:
-                    fld = poisson.solve(
-                        self.solver_vel[ivel], fld, alpha=alpha,
-                        hints=self.hints,
-                        pallas=(self._cn3_pallas[ivel]
-                                and self.hints is None),
-                        pallas_interpret=self._pallas_interpret)
-                if ivel == 0:
-                    u = fld
-                elif ivel == 1:
-                    v = fld
-                else:
-                    w = fld
-        return u, v, w
+        if not cfg.impdiff:
+            return u, v, w
+        out = []
+        for ivel, (fld, bcf, rd) in enumerate(((u, bcu, rud), (v, bcv, rvd),
+                                               (w, bcw, rwd))):
+            fld = fld - 0.5 * f12 * rd
+            cbc = tuple((self.cbcvel[0][d][ivel], self.cbcvel[1][d][ivel])
+                        for d in range(3))
+            cf = self.c_or_f[ivel]
+            planes = poisson.rhs_bound_planes_dyn(cfg, grid, cbc, cf, bcf)
+            planes = {k: alpha * v_ for k, v_ in planes.items()}
+            if cfg.impdiff_1d:
+                # _IMPDIFF_1D: only the z-face planes enter the z-only solve
+                fld = poisson.solve_z_only(
+                    self.solver_vel[ivel], fld, alpha,
+                    bc_planes=(planes[('z', 0)], planes[('z', 1)]))
+            else:
+                fld = poisson.add_rhs_bound(cfg, cf, cbc, fld, planes)
+                fld = poisson.solve(self.solver_vel[ivel], fld, alpha=alpha,
+                                    hints=self.hints)
+            out.append(fld)
+        return tuple(out)
 
-    def _projection_xla(self, u, v, w, p, dtrk, alpha):
-        """XLA expression-path projection (fillps -> solve -> correc
-        -> updatep on padded fields, main.f90:493-503) for configs
-        outside the kernel gates.  Returns (u, v, w, p, vlo,
-        up, vp, wp) -- the post-correction padded fields feed the
-        SGS stage."""
+    def _projection(self, u, v, w, p, dtrk, alpha):
+        """Projection (fillps -> solve -> correc -> updatep on padded
+        fields, main.f90:493-503).  Returns (u, v, w, p, vlo, up, vp, wp)
+        -- the post-correction padded fields feed the SGS stage."""
         cfg, grid = self.cfg, self.grid
         dxi, dyi = cfg.dli[0], cfg.dli[1]
         dzci, dzfi = grid.dzci, grid.dzfi
@@ -2456,287 +495,41 @@ class Simulation:
 
     def _substep(self, state: State, f1, f2, first=False):
         """first=True: this is RK substep 1, whose f2 coefficient is exactly
-        zero (RK_COEFF[0][1]) — the previous-RHS fields are never read, which
-        drops three full-field HBM streams from the momentum pass."""
+        zero (RK_COEFF[0][1]) — the previous-RHS fields are never read."""
         cfg = self.cfg
-        grid = self.grid
-        dxi, dyi = cfg.dli[0], cfg.dli[1]
-        dzci, dzfi = grid.dzci, grid.dzfi
         f12 = f1 + f2
-        dtrk = f12
-        visc = cfg.visc
-
         u, v, w, p, visct = state.u, state.v, state.w, state.p, state.visct
-        ru_o, rv_o, rw_o = state.rhs_old
         if self.hints is not None:
             u, v, w, p, visct = map(self.hints.field, (u, v, w, p, visct))
             if cfg.scalar:
                 state = state._replace(s=self.hints.field(state.s))
         u, v, w, p, visct = map(self._lc, (u, v, w, p, visct))
 
-        scal_state = None
-        rud = rvd = rwd = None
-        rhs_fused = None
-        mom_sums = []
-        if self.use_pallas_mom:
-            # fused momentum+RK Pallas path: the z-edge cache from the
-            # previous substep's post-correc fill is the kernel input (the
-            # reference reads the same ghosts, bound.f90:117-123 reuse)
-            from .ops import pallas_kernels as pk
-            split = self._mom_split
-            hs = cfg.sgstype != 'none'   # visct streams elided when 'none'
-            hsc = cfg.scalar and self._scal_kernel_ok
-            nout = (6 if split is None else 9) + 2 * hsc
-            bcu = bcv = bcw = None
-            if cfg.impdiff:
-                # the CN Helmholtz RHS planes use the beginning-of-substep
-                # BC values (same fill the XLA path computes up front)
-                bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
-            ue, ve, we, pe, se, ye, yze, xeb, xzeb = \
-                self._mom_kernel_inputs(
-                    state, u, v, w, p, visct, hs, hsc,
-                    bc_imp=(bcu, bcv, bcw) if cfg.impdiff else None)
-            with jax.named_scope('momentum_rk_pallas'):
-                if self._kernel_sharded:
-                    outs = self._mom_kernel_sharded(
-                        state, u, v, w, p, visct, ue, ve, we, se, pe,
-                        ye, yze, ru_o, rv_o, rw_o, f1, f2, split, hs, hsc,
-                        first, nout, xeb=xeb, xzeb=xzeb)
-                else:
-                    fuse_fp = self._fuse_mom_fillps
-                    scal_kw = {}
-                    if cfg.scalar and self._scal_kernel_ok:
-                        scal_kw = dict(
-                            sca=state.s, scae=self._zedge_scal(state.s),
-                            rso=None if first else state.dsdt_old,
-                            scal_params=(cfg.visc / cfg.pr, cfg.ssource))
-                    outs = pk.fused_mom_rk(
-                        u, v, w, visct if hs else None, p, ue, ve, we, se, pe,
-                        ru_o, rv_o, rw_o, dzci, dzfi, f1, f2, visc,
-                        dxi, dyi, cfg.bforce,
-                        interpret=self._pallas_interpret, split=split,
-                        ye=ye, yze=yze, ywalls=(True, True),
-                        xe=xeb, xze=xzeb,
-                        fuse_fillps=fuse_fp,
-                        wrec=self._zrec_w if fuse_fp else None,
-                        sum_flags=self._sum_flags,
-                        xop=self._xopT if (self._fuse_xop and fuse_fp)
-                        else None, has_ruo=not first, has_sgs=hs,
-                        fold_cn=self._cn_fold,
-                        xye=self._xwalled and self._ywalled, **scal_kw)
-            u, v, w, ru, rv, rw = outs[0:6]
-            tail = list(outs[6:])
-            if split is not None and not self._cn_fold:
-                rud, rvd, rwd = tail[0:3]
-                del tail[0:3]
-            if cfg.scalar and self._scal_kernel_ok:
-                s_new, dsdt = tail[0:2]
-                del tail[0:2]
-                if cfg.is_sforced:
-                    s_new = s_new + (cfg.scalf
-                                     - st.bulk_mean(s_new, self.gvr_f))
-                scal_state = (s_new, dsdt)
-            if self._fuse_mom_fillps and tail:
-                rhs_fused = tail.pop(0)
-            mom_sums = tail
-            rhs_old = (ru, rv, rw)
-        else:
-            (u, v, w, rhs_old, (rud, rvd, rwd), scal_state,
-             (bcu, bcv, bcw)) = self._mom_rhs_xla(
-                state, u, v, w, p, visct, f1, f2, f12, first,
-                ru_o, rv_o, rw_o)
-
-        u, v, w, f, defer_f = self._bulk_forcing(state, u, v, w,
-                                                 mom_sums)
-        dpdl = jnp.stack(f)
-
-        alpha = -0.5 * visc * dtrk
-        u, v, w = self._cn_stage(u, v, w, bcu, bcv, bcw,
-                                 rud, rvd, rwd, f, f12, alpha)
-
-        zq_new = None
-        if self.use_pallas_mom:
-            # fused projection path: fillps and correc+updatep are single
-            # Pallas passes over interiors + z-edge stacks; no padded field
-            # is ever materialized.  BC-plane reuse follows the reference's
-            # is_updt_wm=.false. path (bound.f90:117-123).
-            from .ops import pallas_kernels as pk
-            # prediction-velocity BC fill (main.f90:493-494) as edge stacks;
-            # the w wall-face rewrite of set_bc travels in row 1 of we2.
-            # With deferred forcing the wm must sample u+f (reference
-            # order: forcing before the fill)
-            bcu, bcv, bcw = self._dynamic_bcs(
-                u, v, w, fadd=(f[0], f[1]) if defer_f else None)
-            xkw_f = {}
-            wb = {}   # wall-plane bundle rows for _advance_wall_planes
-            if self._xwalled:
-                # prediction-fill x bundles; u's wall-face rewrite (set_bc
-                # on the x-staggered component) is patched into the
-                # kernel-input copy BEFORE the z-edge stacks are built so
-                # corner values see the rewritten face (sequential x->z)
-                (xu2, xv2, xw2), (zxu2, zxv2, zxw2) = self._xbundle_vel(
-                    u, v, w, is_correc=False, bcs=(bcu, bcv, bcw))
-                u = self._patch_last_xcol(u, xu2[..., 2])
-                wb.update(xu2=xu2, zxu2=zxu2, zxw2=zxw2, bcu_z=bcu[2])
-            ue2, ve2, we2 = self._zedge_vel(u, v, w, bcu, bcv, bcw,
-                                            is_correc=False)
-            if self._xwalled:
-                xkw_f = dict(xe=self._xe_pack_cols([xu2, xv2, xw2]),
-                             xze=self._xe_pack_cols([zxu2, zxv2, zxw2]),
-                             xye=self._ywalled)
-            ye2 = yze2 = None
-            if self._ywalled:
-                # prediction-fill y bundles (v's rewrite row participates
-                # in the divergence and the correction); wm configs reuse
-                # the freshly-updated planes from the fill above
-                (yu2, yv2, yw2), (zyu2, zyv2, zyw2) = self._ybundle_vel(
-                    u, v, w, is_correc=False,
-                    bcs=(bcu, bcv, bcw) if self.has_wm else None)
-                xsec2 = None
-                if self._xwalled:
-                    xsec2 = self._xye_section(
-                        self._xye_entries([xu2, xv2, xw2], with_p=False),
-                        is_correc=False)
-                ye2, yze2 = self._pack_ybundle([yu2, yv2, yw2],
-                                               [zyu2, zyv2, zyw2],
-                                               xsec=xsec2)
-                wb.update(yv2=yv2, zyv2=zyv2, zyw2=zyw2, xsec2=xsec2)
-            with jax.named_scope('poisson'):
-                if rhs_fused is not None:
-                    rhs = rhs_fused
-                elif self._kernel_sharded:
-                    rhs = self._fillps_sharded(u, v, w, ue2, ve2, we2,
-                                               ye2, yze2, dtrk,
-                                               xeb=xkw_f.get('xe'),
-                                               xzeb=xkw_f.get('xze'))
-                else:
-                    rhs = pk.fused_fillps(u, v, w, ue2, ve2, we2, dzfi,
-                                          1.0 / dtrk, dxi, dyi,
-                                          interpret=self._pallas_interpret,
-                                          ye=ye2, yze=yze2,
-                                          ywalls=(True, True),
-                                          xop=self._xopT if self._fuse_xop
-                                          else None,
-                                          yop=self._yopF if self._fuse_yop
-                                          else None, **xkw_f)
-                rhs = poisson.add_rhs_bound(cfg, ('c', 'c', 'c'), self.cbcpre,
-                                            rhs, self.rhsb_p)
-                xf = self._fuse_xop
-                if self.ablate_solve:
-                    pp = jnp.zeros_like(rhs)
-                elif self.use_pallas_solve_sharded:
-                    pp = poisson.solve_sharded_pallas(
-                        self.solver_p, rhs, self.mesh,
-                        pallas_interpret=self._pallas_interpret)
-                else:
-                    pp = poisson.solve(self.solver_p, rhs, hints=self.hints,
-                                       pre_xformed_x=xf, skip_bwd_x=xf,
-                                       pre_xformed_xy=self._fuse_yop,
-                                       pallas=self.use_pallas_solve,
-                                       pallas_interpret=self._pallas_interpret)
-            # with the x fusion `pp` is x-spectral; the zedge algebra is
-            # value-free (homogeneous BCs, gated) so it commutes with the
-            # transform, and host-side plane consumers invert the two rows
-            # they need (tiny matmuls)
-            ppe = self._zedge_p(pp)
-            ycor = yzcor = None
-            xkw_c = {}
-            if self._xwalled:
-                xpp, zxpp = bnd.xedge_scalar(pp, self.cbcpre, self.bcp_vals,
-                                             cfg.dl, grid.dzc)
-                xkw_c = dict(xe=self._xe_pack_cols([xw2, xpp]),
-                             xze=self._xe_pack_cols([zxw2, zxpp]),
-                             xye=self._ywalled)
-                wb.update(xpp=xpp, zxpp=zxpp)
-            if self._ywalled:
-                ypp, zypp = self._ybundle_p(pp)
-                if xf:
-                    # pp is x-spectral; the y-recipes are x-pointwise,
-                    # linear and homogeneous (bcpre==0 gated), so
-                    # recipe(spectral) == spectral(recipe) — invert just
-                    # the bundle rows (tiny matmuls) so the kernel's ye
-                    # ghost substitution (post window transform) and the
-                    # host wall-plane consumers see physical rows
-                    ypp, zypp = (self._xinv_plane(ypp),
-                                 self._xinv_plane(zypp))
-                xsec_c = None
-                if self._xwalled:
-                    xsec_c = self._xye_section(
-                        self._xye_entries([xw2, xpp], correc_wp=True),
-                        is_correc=False)
-                ycor, yzcor = self._pack_ybundle(
-                    [yw2, ypp, yv2], [zyw2, zypp, zyv2], xsec=xsec_c)
-                wb.update(ypp=ypp, zypp=zypp)
-            visct_done = False
-            with jax.named_scope('correc_updatep_pallas'):
-                imp_kw = dict(impdiff=cfg.impdiff, impdiff_1d=cfg.impdiff_1d,
-                              dzfi=dzfi)
-                fu_d = f[0] if defer_f else 0.0
-                fv_d = f[1] if defer_f else 0.0
-                if self._fuse_correc_smag:
-                    # p's alias donor must be an intermediate: substep 1's
-                    # p is the (non-donated) step input, so no alias there
-                    u, v, w, p, visct = self._correc_smag_fused(
-                        u, v, w, pp, p, ue2, ve2, we2, ppe, dtrk,
-                        fu=fu_d, fv=fv_d, xspectral=xf, alias_p=not first)
-                    visct_done = True
-                elif self._kernel_sharded:
-                    u, v, w, p = self._correc_sharded(
-                        u, v, w, pp, p, we2, ppe, ycor, yzcor, dtrk, alpha,
-                        imp_kw, first, xeb=xkw_c.get('xe'),
-                        xzeb=xkw_c.get('xze'))
-                else:
-                    u, v, w, p = pk.fused_correc_updatep(
-                        u, v, w, pp, p, we2, ppe, dtrk, dxi, dyi, dzci,
-                        interpret=self._pallas_interpret, alpha=alpha,
-                        ye=ycor, yze=yzcor, ywalls=(True, True),
-                        fu=fu_d, fv=fv_d, alias_p=not first,
-                        xopi=self._xopiT if xf else None,
-                        **xkw_c, **imp_kw)
-            vlo = self._advance_wall_planes(state, pp, ppe, we2, dtrk, xf,
-                                            **wb)
-            # post-correction fill (main.f90:500-501, is_correc=.true.,
-            # is_updt_wm=.true.: the reference recomputes the wall-model
-            # Neumann planes from the corrected velocity here too)
-            bcu, bcv, bcw = self._dynamic_bcs(u, v, w)
-            zq_new = self._zedge_vel(u, v, w, bcu, bcv, bcw,
-                                     vlo=vlo, is_correc=True)
-        else:
-            u, v, w, p, vlo, up, vp, wp = self._projection_xla(
-                u, v, w, p, dtrk, alpha)
+        (u, v, w, rhs_old, (rud, rvd, rwd), scal_state,
+         (bcu, bcv, bcw)) = self._momentum(state, u, v, w, p, visct,
+                                           f1, f2, first)
+        u, v, w, f = self._bulk_forcing(u, v, w)
+        alpha = -0.5 * cfg.visc * f12
+        u, v, w = self._cn_stage(u, v, w, bcu, bcv, bcw, rud, rvd, rwd,
+                                 f12, alpha)
+        u, v, w, p, vlo, up, vp, wp = self._projection(u, v, w, p, f12, alpha)
 
         # SGS eddy viscosity (main.f90:504-506)
         with jax.named_scope('sgs'):
-            if self.use_pallas_mom:
-                if getattr(self, '_fuse_correc_smag', False) and visct_done:
-                    pass   # nu_t came out of the fused projection kernel
-                elif cfg.sgstype == 'none':
-                    visct = jnp.zeros_like(u)
-                elif self.use_pallas_smag:
-                    visct = self._compute_sgs_kernel(u, v, w, *zq_new)
-                elif self.use_pallas_dsmag:
-                    visct = self._compute_dsmag_kernel(u, v, w, *zq_new,
-                                                       vlo=vlo)
-                else:
-                    up, vp, wp, _ = self._pad_vel(u, v, w, bcu, bcv, bcw,
-                                                  vlo=vlo, is_correc=True)
-                    visct = self._compute_sgs(up, vp, wp)
-            else:
-                visct = self._compute_sgs(up, vp, wp)
+            visct = self._compute_sgs(up, vp, wp)
 
         if self.hints is not None:
             # pin the output sharding to the canonical field layout —
             # otherwise GSPMD may emit the state in a solver-stage sharding
             # (e.g. z-split) and every step boundary pays an all-to-all
             u, v, w, p, visct = map(self.hints.field, (u, v, w, p, visct))
-        upd = dict(u=u, v=v, w=w, p=p, visct=visct, vlo=vlo, rhs_old=rhs_old,
-                   zq=zq_new)
+        upd = dict(u=u, v=v, w=w, p=p, visct=visct, vlo=vlo, rhs_old=rhs_old)
         if cfg.scalar:
             upd['s'], upd['dsdt_old'] = scal_state
             if self.hints is not None:
                 upd['s'] = self.hints.field(upd['s'])
                 upd['dsdt_old'] = self.hints.field(upd['dsdt_old'])
-        return state._replace(**upd), dpdl
+        return state._replace(**upd), jnp.stack(f)
 
     def _step_impl(self, state: State, dt):
         """One full time step = 3 RK substeps (main.f90:417-507), one XLA
@@ -2752,7 +545,8 @@ class Simulation:
         return state, -dpdl / dt
 
     def step(self, state: State, dt):
-        return self._step(state, jnp.asarray(dt, dtype=self.dtype))
+        with self._x64():
+            return self._step(state, jnp.asarray(dt, dtype=self.dtype))
 
     def multi_step(self, state: State, dt, nsteps: int) -> State:
         """Advance `nsteps` steps in ONE device program (lax.fori_loop) —
@@ -2769,7 +563,9 @@ class Simulation:
                     return st2
                 return jax.lax.fori_loop(0, n, body, state)
             self._multi = jax.jit(run, static_argnums=2, donate_argnums=0)
-        return self._multi(state, jnp.asarray(dt, dtype=self.dtype), nsteps)
+        with self._x64():
+            return self._multi(state, jnp.asarray(dt, dtype=self.dtype),
+                               nsteps)
 
     # ------------------------------------------------------------------
     def _chk_impl(self, state: State):
@@ -2790,7 +586,8 @@ class Simulation:
         return dt_cfl, divtot, divmax
 
     def check(self, state: State):
-        dt_cfl, divtot, divmax = self._chk(state)
+        with self._x64():
+            dt_cfl, divtot, divmax = self._chk(state)
         return float(dt_cfl), float(divtot), float(divmax)
 
     def padded_state(self, state: State):
@@ -2807,7 +604,8 @@ class Simulation:
                                               vlo=state.vlo, is_correc=True)
                 return up, vp, wp, self._pad_p(state.p), self._pad_s(state.visct)
             self._padded_jit = jax.jit(impl)
-        return tuple(np.asarray(a) for a in self._padded_jit(state))
+        with self._x64():
+            return tuple(np.asarray(a) for a in self._padded_jit(state))
 
     def pick_dt(self, dt_cfl: float) -> float:
         cfg = self.cfg

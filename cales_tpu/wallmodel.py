@@ -7,7 +7,7 @@ the two bracketing cells (wmodel.f90:119-131), made wall-relative
 laminar profile (327-333), and the resulting tau_w/visc is written as a
 Neumann BC value for the parallel components (151,168,202,219,253,269).
 
-TPU-native: the Newton iteration runs vectorized over the entire boundary
+Vectorized: the Newton iteration runs vectorized over the entire boundary
 plane with a fixed iteration count (reference converges in 3-7 iterations at
 |du_tau/u_tau| < 0.5e-4, wmodel.f90:288-297; a fixed 12 iterations of the
 quadratically-convergent update is bitwise-stable once converged and keeps the
@@ -254,8 +254,7 @@ def z_wall_wm_planes(cfg, grid, U1, U2, V1, V2, umag, vmag, bcu_z, bcv_z,
                      ib, index_wm):
     """The z-wall branch of the wall-model BC update on explicit padded
     (ny+2, nx+2) velocity ROWS at (k1, k2) — shared by the full-field
-    update above and the fused correc+smag path (which synthesizes the
-    corrected rows host-side as plane expressions before the kernel runs).
+    update above and the sliced-row update (Simulation._wm_bcs_fast).
     Returns the updated (bcu_z, bcv_z) planes for face ib."""
     nx, ny, nz = cfg.ng
     h, visc = cfg.hwm, cfg.visc

@@ -1,7 +1,7 @@
 // Native I/O engine: threaded field writer/reader for checkpoints and
 // visualization dumps.
 //
-// TPU-native counterpart of the reference's collective MPI-IO path
+// Native counterpart of the reference's collective MPI-IO path
 // (/root/reference/src/load.f90:155-187): there, ranks cooperate on one file
 // via subarray views; here, a single host process drains device-to-host field
 // buffers to disk with N pwrite() worker threads over disjoint stripes, which

@@ -35,14 +35,23 @@ def test_reference_nml_parses_and_validates(case):
 
 
 def test_nml_values_wall_model():
-    cfg = config_from_nml(
-        str(REF_EX / 'les/_manuscript_turbulent_channel_wall_model/input.nml'))
+    """The repo's wall-modeled channel deck (the reference's
+    les/_manuscript_turbulent_channel_wall_model case) parses to its own
+    values."""
+    deck = (Path(__file__).resolve().parent.parent / 'examples'
+            / 'turbulent_channel_wmles' / 'input.nml')
+    cfg = config_from_nml(str(deck))
+    validate(cfg)
     assert cfg.ng == (192, 72, 48)
+    assert cfg.l == (12.8, 4.8, 2.0)
     assert cfg.gtype == 6
+    assert cfg.visci == 125000.0
     assert cfg.sgstype == 'smag'
     assert cfg.lwm == ((0, 0, 1), (0, 0, 1))
     assert cfg.hwm == 0.1
-    assert cfg.stop_type == (False, True, False)
+    assert cfg.stop_type == (True, False, False)
+    assert cfg.nstep == 10000
+    assert cfg.is_forced == (True, False, False)
     assert cfg.cbcvel[0][2][0] == 'D'  # z-wall Dirichlet for u
 
 

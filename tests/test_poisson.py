@@ -119,8 +119,9 @@ def test_poisson_periodic_z():
 
 
 def test_eig_matches_thomas():
-    """The MXU matrix-diagonalization z-solver must agree with the Thomas
-    scan to machine precision (both paths kept; eig is the TPU default)."""
+    """The matrix-diagonalization z-solver must agree with the Thomas
+    scan to machine precision (both paths kept; zsolver 'auto' picks per
+    platform)."""
     ng = (16, 12, 10)
     cfg = Config(ng=ng, l=(1.3, 0.9, 2.0), gtype=1, gr=0.8, dtype='float64')
     grid = make_grid(cfg.gtype, ng[2], cfg.gr, cfg.l[2])
@@ -146,178 +147,3 @@ def test_eig_matches_thomas():
             pe = pe - pe.mean()
             pt = pt - pt.mean()
         np.testing.assert_allclose(pe, pt, atol=2e-9)
-
-
-def test_pallas_solve_matches_xla(monkeypatch):
-    """The 3-pass Pallas solve (ops/pallas_solve.py: fwd-y / z-eig+divide /
-    bwd-y kernels, interpret mode) must reproduce poisson.solve exactly on
-    the x-spectral in/out contract, for periodic and walled y/z."""
-    monkeypatch.setenv('CALES_NO_PSOLVE_THOMAS', '1')   # pin the eig variant
-    from cales_tpu.poisson import pallas_eligible
-    ng = (128, 16, 24)    # (nx, ny, nz)
-    rng = np.random.default_rng(7)
-    rhs = jnp.asarray(rng.standard_normal((ng[2], ng[1], ng[0])))
-    for cbc in (('PP', 'PP', 'NN'), ('PP', 'NN', 'NN'), ('PP', 'DD', 'NN'),
-                ('PP', 'PP', 'PP')):
-        cfg = Config(ng=ng, l=(1.3, 0.9, 2.0), gtype=1,
-                     gr=0.8 if cbc[2] != 'PP' else 0.0,
-                     dtype='float64', ptransform='mat')
-        grid = make_grid(cfg.gtype, ng[2], cfg.gr, cfg.l[2])
-        sv = make_solver(cfg, grid, cbc, ('c', 'c', 'c'))
-        assert pallas_eligible(sv, (ng[2], ng[1], ng[0]), 8), cbc
-        a = np.asarray(solve(sv, rhs, pre_xformed_x=True, skip_bwd_x=True))
-        b = np.asarray(solve(sv, rhs, pre_xformed_x=True, skip_bwd_x=True,
-                             pallas=True, pallas_interpret=True))
-        if 'D' not in ''.join(cbc):
-            a, b = a - a.mean(), b - b.mean()
-        scale = np.abs(a).max()
-        np.testing.assert_allclose(b, a, atol=1e-13 * scale, rtol=0)
-
-
-def test_pallas_solve_full_transforms_matches_xla():
-    """The generic aliased Pallas solve (no kernel x fusion: the x operator
-    matmuls ride the y passes as flat in-kernel dots) must reproduce
-    poisson.solve on PHYSICAL in/out for every baseline-class BC set —
-    triperiodic, channel, duct, and cavity pressure systems."""
-    ng = (128, 16, 24)
-    rng = np.random.default_rng(17)
-    rhs0 = rng.standard_normal((ng[2], ng[1], ng[0]))
-    for cbc in (('PP', 'PP', 'PP'), ('PP', 'PP', 'NN'), ('PP', 'NN', 'NN'),
-                ('NN', 'NN', 'NN')):
-        cfg = Config(ng=ng, l=(1.3, 0.9, 2.0), gtype=1,
-                     gr=0.8 if cbc[2] != 'PP' else 0.0,
-                     dtype='float64', ptransform='mat')
-        grid = make_grid(cfg.gtype, ng[2], cfg.gr, cfg.l[2])
-        sv = make_solver(cfg, grid, cbc, ('c', 'c', 'c'))
-        from cales_tpu.poisson import pallas_eligible
-        assert pallas_eligible(sv, (ng[2], ng[1], ng[0]), 8), cbc
-        # compatible RHS (physical space): zero dzf-weighted mean
-        w = grid.dzf[1:ng[2] + 1]
-        wm = (rhs0 * w[:, None, None]).sum() / (w.sum() * ng[0] * ng[1])
-        rhs = jnp.asarray(rhs0 - wm)
-        a = np.asarray(solve(sv, rhs))
-        b = np.asarray(solve(sv, rhs, pallas=True, pallas_interpret=True))
-        a, b = a - a.mean(), b - b.mean()
-        scale = np.abs(a).max()
-        np.testing.assert_allclose(b, a, atol=2e-11 * scale, rtol=0,
-                                   err_msg=str(cbc))
-
-
-def test_pallas_helmholtz_3d_matches_xla():
-    """The aliased Pallas Helmholtz pipeline (solve with alpha: transforms
-    fused into the y passes + alpha-scaled Thomas z, qz tail passthrough)
-    must reproduce poisson.solve for the three velocity stagger classes of
-    the full-3D implicit-diffusion path (main.f90:423-443)."""
-    from cales_tpu.poisson import pallas_helmholtz_eligible
-    ng = (128, 16, 24)
-    rng = np.random.default_rng(19)
-    rhs = jnp.asarray(rng.standard_normal((ng[2], ng[1], ng[0])))
-    cfg = Config(ng=ng, l=(1.3, 0.9, 2.0), gtype=1, gr=0.8,
-                 dtype='float64', ptransform='mat')
-    grid = make_grid(cfg.gtype, ng[2], cfg.gr, cfg.l[2])
-    for cbc, cf in ((('PP', 'PP', 'DD'), ('f', 'c', 'c')),
-                    (('PP', 'PP', 'DD'), ('c', 'c', 'f')),   # qz=1 w solve
-                    (('PP', 'PP', 'PP'), ('c', 'c', 'c'))):
-        g = grid if cbc[2] != 'PP' else make_grid(1, ng[2], 0.0, cfg.l[2])
-        sv = make_solver(cfg, g, cbc, cf)
-        assert pallas_helmholtz_eligible(sv, (ng[2], ng[1], ng[0]), 8), cbc
-        alpha = -0.021
-        a = np.asarray(solve(sv, rhs, alpha=alpha))
-        b = np.asarray(solve(sv, rhs, alpha=alpha, pallas=True,
-                             pallas_interpret=True))
-        np.testing.assert_allclose(b, a, atol=1e-12 * np.abs(a).max(),
-                                   rtol=0, err_msg=str((cbc, cf)))
-
-
-def test_pallas_helmholtz_z_matches_xla():
-    """solve_z_only's aliased Pallas Thomas pass (the _IMPDIFF_1D CN solve,
-    solver.f90:182-233) must reproduce the XLA path at machine precision —
-    both c- and f-staggered z (the qz=1 truncated w solve)."""
-    from cales_tpu.poisson import solve_z_only
-    ng = (128, 16, 24)
-    rng = np.random.default_rng(13)
-    rhs = jnp.asarray(rng.standard_normal((ng[2], ng[1], ng[0])))
-    cfg = Config(ng=ng, l=(1.3, 0.9, 2.0), gtype=1, gr=0.8,
-                 dtype='float64', ptransform='mat')
-    grid = make_grid(cfg.gtype, ng[2], cfg.gr, cfg.l[2])
-    for cbc, cf in ((('PP', 'PP', 'DD'), ('c', 'c', 'c')),
-                    (('PP', 'PP', 'DD'), ('c', 'c', 'f')),
-                    (('PP', 'PP', 'ND'), ('c', 'c', 'c'))):
-        sv = make_solver(cfg, grid, cbc, cf)
-        alpha = -0.043
-        a = np.asarray(solve_z_only(sv, rhs, alpha))
-        b = np.asarray(solve_z_only(sv, rhs, alpha, pallas=True,
-                                    pallas_interpret=True))
-        np.testing.assert_allclose(b, a, atol=1e-12 * np.abs(a).max(),
-                                   rtol=0, err_msg=str((cbc, cf)))
-
-
-def test_helmholtz_z_shift_matches_pre_add():
-    """solve_z_only(shift=f) (the folded bulk-forcing add of the CN-fold
-    path, rk.f90:197-222 + main.f90:423-431 ordering) must equal adding f
-    to the RHS field before the solve — XLA and Pallas branches, incl. the
-    qz=1 face-staggered passthrough tail."""
-    from cales_tpu.poisson import solve_z_only
-    ng = (96, 12, 16)
-    rng = np.random.default_rng(7)
-    rhs = jnp.asarray(rng.standard_normal((ng[2], ng[1], ng[0])))
-    cfg = Config(ng=ng, l=(1.3, 0.9, 2.0), gtype=1, gr=0.8,
-                 dtype='float64', ptransform='mat')
-    grid = make_grid(cfg.gtype, ng[2], cfg.gr, cfg.l[2])
-    f = 0.0173
-    for cbc, cf in ((('PP', 'PP', 'DD'), ('c', 'c', 'c')),
-                    (('PP', 'PP', 'DD'), ('c', 'c', 'f'))):
-        sv = make_solver(cfg, grid, cbc, cf)
-        alpha = -0.043
-        for pallas in (False, True):
-            a = np.asarray(solve_z_only(sv, rhs + f, alpha, pallas=pallas,
-                                        pallas_interpret=pallas))
-            b = np.asarray(solve_z_only(sv, rhs, alpha, pallas=pallas,
-                                        pallas_interpret=pallas,
-                                        shift=jnp.asarray(f)))
-            np.testing.assert_allclose(b, a, atol=1e-13 * np.abs(a).max(),
-                                       rtol=0,
-                                       err_msg=str((cbc, cf, pallas)))
-
-
-def test_pallas_solve_thomas_matches_xla(monkeypatch):
-    """The opt-in aliased V1 pipeline (default for non-periodic z: in-place y
-    passes + in-kernel eps-regularized Thomas z sweep) must agree with the
-    eig-based poisson.solve up to the pressure gauge — the eig path
-    PROJECTS the singular constant mode out while Thomas regularizes the
-    pivots (the reference dgtsv_homebrewed, solver.f90:153-179), so the
-    comparison is mean-subtracted."""
-    monkeypatch.delenv('CALES_NO_PSOLVE_THOMAS', raising=False)
-    from cales_tpu.poisson import pallas_eligible
-    ng = (128, 16, 24)    # (nx, ny, nz)
-    rng = np.random.default_rng(11)
-    rhs0 = rng.standard_normal((ng[2], ng[1], ng[0]))
-    for cbc in (('PP', 'PP', 'NN'), ('PP', 'NN', 'NN'), ('PP', 'DD', 'ND')):
-        cfg = Config(ng=ng, l=(1.3, 0.9, 2.0), gtype=1, gr=0.8,
-                     dtype='float64', ptransform='mat')
-        grid = make_grid(cfg.gtype, ng[2], cfg.gr, cfg.l[2])
-        sv = make_solver(cfg, grid, cbc, ('c', 'c', 'c'))
-        assert pallas_eligible(sv, (ng[2], ng[1], ng[0]), 8), cbc
-        if 'D' not in ''.join(cbc):
-            # compatible RHS: pinning and eig-projection agree (up to the
-            # gauge) only for a consistent singular system.  The input is
-            # x-SPECTRAL, so zero the (z, y) dzf-weighted mean per column
-            # (the singular lane is (ky=0, kx=0) inside its own column)
-            w = grid.dzf[1:ng[2] + 1][:, None, None]
-            wm = (rhs0 * w).sum(axis=(0, 1), keepdims=True) \
-                / (w.sum() * ng[1])
-            rhs = jnp.asarray(rhs0 - wm)
-        else:
-            rhs = jnp.asarray(rhs0)
-        a = np.asarray(solve(sv, rhs, pre_xformed_x=True, skip_bwd_x=True))
-        b = np.asarray(solve(sv, rhs, pre_xformed_x=True, skip_bwd_x=True,
-                             pallas=True, pallas_interpret=True))
-        if 'D' not in ''.join(cbc):
-            # the outputs are x-SPECTRAL: a physical-space gauge constant
-            # (projection vs pinning) lives in the kx=0 column only, so
-            # remove the per-column (z, y) mean rather than the array mean
-            a = a - a.mean(axis=(0, 1), keepdims=True)
-            b = b - b.mean(axis=(0, 1), keepdims=True)
-        scale = np.abs(a).max()
-        np.testing.assert_allclose(b, a, atol=1e-11 * scale, rtol=0,
-                                   err_msg=str(cbc))

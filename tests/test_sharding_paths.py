@@ -131,762 +131,3 @@ def test_impdiff_3d_channel_sharded():
                  is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
                  sgstype='none', impdiff=True, **_channel_bcs)
     _compare(cfg)
-
-
-def test_kernel_path_sharded_matches_single(monkeypatch):
-    """The Pallas kernel path under a 1D y decomposition (shard_map +
-    ppermute halo strips, y_ext kernels) must reproduce the single-device
-    kernel path (interpret mode)."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    # ptransform='mat' = the TPU production solve (the CPU fft path under
-    # this shard_map+GSPMD combination trips an XLA c64/c128 verifier quirk)
-    cfg = Config(ng=(128, 64, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=0.9,
-                 visci=2000.0, inivel='log', is_wallturb=True, dtype='float64',
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='smag', ptransform='mat', **_channel_bcs)
-    grid = make_grid_from_config(cfg)
-    u, v, w, p = _perturbed(cfg, grid)
-    dt = 1e-3
-
-    sim1 = Simulation(cfg, grid)
-    assert sim1.use_pallas_mom and not sim1._kernel_sharded
-    s1 = sim1.initial_state(u, v, w, p)
-    for _ in range(2):
-        s1, _ = sim1.step(s1, dt)
-
-    mesh = make_mesh((4, 1))
-    simN = Simulation(cfg, grid, mesh=mesh)
-    assert simN.use_pallas_mom and simN._kernel_sharded
-    sN = simN.initial_state(u, v, w, p)
-    sh = field_sharding(mesh)
-    sN = sN._replace(u=jax.device_put(sN.u, sh), v=jax.device_put(sN.v, sh),
-                     w=jax.device_put(sN.w, sh), p=jax.device_put(sN.p, sh),
-                     visct=jax.device_put(sN.visct, sh))
-    for _ in range(2):
-        sN, _ = simN.step(sN, dt)
-
-    for name in ('u', 'v', 'w', 'p', 'visct'):
-        a = np.asarray(getattr(s1, name))
-        b = np.asarray(getattr(sN, name))
-        if name == 'p':
-            a, b = a - a.mean(), b - b.mean()
-        err = np.abs(a - b).max()
-        assert err < 1e-11, f"{name} kernel-sharded mismatch: {err}"
-
-
-def test_sharded_pallas_solve_matches_single(monkeypatch):
-    """The slab-sharded aliased Pallas solve (per-shard passes around two
-    explicit all-to-alls, poisson.solve_sharded_pallas) must reproduce the
-    single-device kernel path.  Shape chosen so the post-transpose lanes
-    satisfy (nx//gy) % 128 == 0."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    cfg = Config(ng=(256, 32, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=0.9,
-                 visci=2000.0, inivel='log', is_wallturb=True, dtype='float64',
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='smag', ptransform='mat', **_channel_bcs)
-    grid = make_grid_from_config(cfg)
-    u, v, w, p = _perturbed(cfg, grid)
-    dt = 1e-3
-
-    sim1 = Simulation(cfg, grid)
-    assert sim1.use_pallas_mom and not sim1._kernel_sharded
-    s1 = sim1.initial_state(u, v, w, p)
-    for _ in range(2):
-        s1, _ = sim1.step(s1, dt)
-
-    mesh = make_mesh((2, 1))
-    simN = Simulation(cfg, grid, mesh=mesh)
-    assert simN.use_pallas_mom and simN._kernel_sharded
-    assert simN.use_pallas_solve_sharded, simN.exec_path()
-    sN = simN.initial_state(u, v, w, p)
-    sh = field_sharding(mesh)
-    sN = sN._replace(u=jax.device_put(sN.u, sh), v=jax.device_put(sN.v, sh),
-                     w=jax.device_put(sN.w, sh), p=jax.device_put(sN.p, sh),
-                     visct=jax.device_put(sN.visct, sh))
-    for _ in range(2):
-        sN, _ = simN.step(sN, dt)
-
-    for name in ('u', 'v', 'w', 'p', 'visct'):
-        a = np.asarray(getattr(s1, name))
-        b = np.asarray(getattr(sN, name))
-        if name == 'p':
-            a, b = a - a.mean(), b - b.mean()
-        err = np.abs(a - b).max()
-        assert err < 1e-10, f"{name} sharded-solve mismatch: {err}"
-
-
-def test_impdiff_1d_kernel_sharded_matches_single(monkeypatch):
-    """Kernel-sharded impdiff_1d: the momentum kernel's implicit split plus
-    the per-shard zero-communication CN Thomas solves
-    (poisson.solve_z_only_sharded) must reproduce the single-device kernel
-    path (interpret mode)."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    cfg = Config(ng=(128, 32, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=0.9,
-                 visci=2000.0, inivel='log', is_wallturb=True, dtype='float64',
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='none', impdiff=True, impdiff_1d=True,
-                 ptransform='mat', **_channel_bcs)
-    grid = make_grid_from_config(cfg)
-    u, v, w, p = _perturbed(cfg, grid)
-    dt = 1e-3
-
-    sim1 = Simulation(cfg, grid)
-    assert sim1.use_pallas_mom and sim1.use_pallas_cn
-    s1 = sim1.initial_state(u, v, w, p)
-    for _ in range(2):
-        s1, _ = sim1.step(s1, dt)
-
-    mesh = make_mesh((2, 1))
-    simN = Simulation(cfg, grid, mesh=mesh)
-    assert simN._kernel_sharded and simN.use_pallas_cn_sharded, \
-        simN.exec_path()
-    sN = simN.initial_state(u, v, w, p)
-    sh = field_sharding(mesh)
-    sN = sN._replace(u=jax.device_put(sN.u, sh), v=jax.device_put(sN.v, sh),
-                     w=jax.device_put(sN.w, sh), p=jax.device_put(sN.p, sh),
-                     visct=jax.device_put(sN.visct, sh))
-    for _ in range(2):
-        sN, _ = simN.step(sN, dt)
-
-    for name in ('u', 'v', 'w', 'p'):
-        a = np.asarray(getattr(s1, name))
-        b = np.asarray(getattr(sN, name))
-        if name == 'p':
-            a, b = a - a.mean(), b - b.mean()
-        err = np.abs(a - b).max()
-        assert err < 1e-10, f"{name} impdiff CN sharded mismatch: {err}"
-
-
-def test_dsmag_kernel_path_sharded_matches_single(monkeypatch):
-    """The dsmag Pallas pipeline under the 1D y decomposition must
-    reproduce the single-device kernel path (interpret mode)."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = Config(ng=(128, 64, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=0.9,
-                 visci=2000.0, inivel='log', is_wallturb=True, dtype='float64',
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='dsmag', dsmag_avg='channel', ptransform='mat',
-                 **_channel_bcs)
-    grid = make_grid_from_config(cfg)
-    u, v, w, p = _perturbed(cfg, grid)
-    dt = 1e-3
-
-    sim1 = Simulation(cfg, grid)
-    assert sim1.use_pallas_dsmag
-    s1 = sim1.initial_state(u, v, w, p)
-    for _ in range(2):
-        s1, _ = sim1.step(s1, dt)
-
-    mesh = make_mesh((4, 1))
-    simN = Simulation(cfg, grid, mesh=mesh)
-    assert simN.use_pallas_dsmag and simN._kernel_sharded
-    sN = simN.initial_state(u, v, w, p)
-    sh = field_sharding(mesh)
-    sN = sN._replace(u=jax.device_put(sN.u, sh), v=jax.device_put(sN.v, sh),
-                     w=jax.device_put(sN.w, sh), p=jax.device_put(sN.p, sh),
-                     visct=jax.device_put(sN.visct, sh))
-    for _ in range(2):
-        sN, _ = simN.step(sN, dt)
-
-    for name in ('u', 'v', 'w', 'p', 'visct'):
-        a = np.asarray(getattr(s1, name))
-        b = np.asarray(getattr(sN, name))
-        if name == 'p':
-            a, b = a - a.mean(), b - b.mean()
-        err = np.abs(a - b).max()
-        assert err < 1e-11, f"{name} dsmag kernel-sharded mismatch: {err}"
-
-
-def test_kernel_path_2d_mesh_matches_single(monkeypatch):
-    """The Pallas kernel path under a 2D (gy, gx) pencil decomposition:
-    y halos via ppermute strips AND x shard-edge roll fixups via the
-    ppermute'd ghost-column bundle (xe protocol) must reproduce the
-    single-device kernel path (interpret mode).  This is the
-    reference-canonical pencil layout (initmpi.f90:56-73) that previously
-    fell back to the XLA path."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = Config(ng=(256, 32, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=0.9,
-                 visci=2000.0, inivel='log', is_wallturb=True, dtype='float64',
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='smag', ptransform='mat', **_channel_bcs)
-    grid = make_grid_from_config(cfg)
-    u, v, w, p = _perturbed(cfg, grid)
-    dt = 1e-3
-
-    sim1 = Simulation(cfg, grid)
-    assert sim1.use_pallas_mom
-    s1 = sim1.initial_state(u, v, w, p)
-    for _ in range(2):
-        s1, _ = sim1.step(s1, dt)
-
-    mesh = make_mesh((2, 2))
-    simN = Simulation(cfg, grid, mesh=mesh)
-    assert simN.use_pallas_mom and simN._kernel_sharded, simN.exec_path()
-    assert simN._gx_sharded
-    sN = simN.initial_state(u, v, w, p)
-    sh = field_sharding(mesh)
-    sN = sN._replace(u=jax.device_put(sN.u, sh), v=jax.device_put(sN.v, sh),
-                     w=jax.device_put(sN.w, sh), p=jax.device_put(sN.p, sh),
-                     visct=jax.device_put(sN.visct, sh))
-    for _ in range(2):
-        sN, _ = simN.step(sN, dt)
-
-    for name in ('u', 'v', 'w', 'p', 'visct'):
-        a = np.asarray(getattr(s1, name))
-        b = np.asarray(getattr(sN, name))
-        if name == 'p':
-            a, b = a - a.mean(), b - b.mean()
-        err = np.abs(a - b).max()
-        assert err < 1e-11, f"{name} 2D-mesh kernel mismatch: {err}"
-
-
-def test_dsmag_kernel_path_2d_mesh_matches_single(monkeypatch):
-    """Dynamic Smagorinsky on a 2D (gy, gx) pencil mesh via the x-extended
-    one-pass kernel (the filter chain needs 3-deep x ghosts, deeper than
-    the 1-column xe roll-fixup bundle: the inputs carry materialized
-    64-lane ppermute'd x halos and the averaging sums mask to the interior
-    lanes + psum) must reproduce the single-device one-pass kernel path.
-    This closes the last dsmag decomposition hole (sgs.f90:153-380 runs
-    under any pencil decomposition, initmpi.f90:56-73)."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = Config(ng=(256, 32, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=0.9,
-                 visci=2000.0, inivel='log', is_wallturb=True, dtype='float64',
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='dsmag', dsmag_avg='channel', ptransform='mat',
-                 **_channel_bcs)
-    grid = make_grid_from_config(cfg)
-    u, v, w, p = _perturbed(cfg, grid)
-    dt = 1e-3
-
-    sim1 = Simulation(cfg, grid)
-    assert sim1._dsmag_onepass, sim1.exec_path()
-    s1 = sim1.initial_state(u, v, w, p)
-    for _ in range(2):
-        s1, _ = sim1.step(s1, dt)
-
-    mesh = make_mesh((2, 2))
-    simN = Simulation(cfg, grid, mesh=mesh)
-    assert simN._kernel_sharded and simN._gx_sharded, simN.exec_path()
-    assert simN._dsmag_onepass and simN._dsmag_xext, simN.exec_path()
-    sN = simN.initial_state(u, v, w, p)
-    sh = field_sharding(mesh)
-    sN = sN._replace(u=jax.device_put(sN.u, sh), v=jax.device_put(sN.v, sh),
-                     w=jax.device_put(sN.w, sh), p=jax.device_put(sN.p, sh),
-                     visct=jax.device_put(sN.visct, sh))
-    for _ in range(2):
-        sN, _ = simN.step(sN, dt)
-
-    for name in ('u', 'v', 'w', 'p', 'visct'):
-        a = np.asarray(getattr(s1, name))
-        b = np.asarray(getattr(sN, name))
-        if name == 'p':
-            # the single-chip Thomas solve PINS the singular all-N mode,
-            # the mesh-path eig solve PROJECTS it: gauge-free comparison
-            a, b = a - a.mean(), b - b.mean()
-        err = np.abs(a - b).max()
-        assert err < 1e-11, f"{name} dsmag 2D-mesh mismatch: {err}"
-
-
-def test_kernel_path_sharded_dns_no_sgs(monkeypatch):
-    """sgstype 'none' on the kernel path (has_sgs=False: the zero visct
-    field's HBM stream, windows and eddy terms are elided) under BOTH
-    sharded protocols — (2,1) ppermute strips and (2,2) xe column bundles —
-    must reproduce the single-device kernel path (interpret mode)."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = Config(ng=(256, 32, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=0.9,
-                 visci=2000.0, inivel='log', is_wallturb=True, dtype='float64',
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='none', ptransform='mat', **_channel_bcs)
-    grid = make_grid_from_config(cfg)
-    u, v, w, p = _perturbed(cfg, grid)
-    dt = 1e-3
-
-    sim1 = Simulation(cfg, grid)
-    assert sim1.use_pallas_mom
-    s1 = sim1.initial_state(u, v, w, p)
-    for _ in range(2):
-        s1, _ = sim1.step(s1, dt)
-
-    for shape in ((2, 1), (2, 2)):
-        mesh = make_mesh(shape)
-        simN = Simulation(cfg, grid, mesh=mesh)
-        assert simN.use_pallas_mom and simN._kernel_sharded, simN.exec_path()
-        sN = simN.initial_state(u, v, w, p)
-        sh = field_sharding(mesh)
-        sN = sN._replace(u=jax.device_put(sN.u, sh),
-                         v=jax.device_put(sN.v, sh),
-                         w=jax.device_put(sN.w, sh),
-                         p=jax.device_put(sN.p, sh),
-                         visct=jax.device_put(sN.visct, sh))
-        for _ in range(2):
-            sN, _ = simN.step(sN, dt)
-        for name in ('u', 'v', 'w', 'p'):
-            a = np.asarray(getattr(s1, name))
-            b = np.asarray(getattr(sN, name))
-            if name == 'p':
-                a, b = a - a.mean(), b - b.mean()
-            err = np.abs(a - b).max()
-            assert err < 1e-11, f"{name} {shape} DNS-kernel mismatch: {err}"
-
-
-def test_scalar_kernel_sharded_matches_single(monkeypatch):
-    """The fused passive scalar under the 1D strips decomposition (its
-    window rides the same ppermute'd halo strips as the velocities) must
-    reproduce the single-device kernel path."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    cfg = Config(ng=(128, 32, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=0.9,
-                 visci=2000.0, inivel='log', is_wallturb=True, dtype='float64',
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='smag', ptransform='mat',
-                 scalar=True, pr=0.71, iniscal='zer', ssource=0.05,
-                 cbcscal=(('P', 'P', 'N'), ('P', 'P', 'N')),
-                 **_channel_bcs)
-    grid = make_grid_from_config(cfg)
-    u, v, w, p = _perturbed(cfg, grid)
-    dt = 1e-3
-
-    sim1 = Simulation(cfg, grid)
-    assert sim1.use_pallas_mom and sim1._scal_kernel_ok, sim1.exec_path()
-    s1 = sim1.initial_state(u, v, w, p)
-    for _ in range(2):
-        s1, _ = sim1.step(s1, dt)
-
-    mesh = make_mesh((2, 1))
-    simN = Simulation(cfg, grid, mesh=mesh)
-    assert simN._kernel_sharded and simN._scal_kernel_ok, simN.exec_path()
-    sN = simN.initial_state(u, v, w, p)
-    sh = field_sharding(mesh)
-    sN = sN._replace(u=jax.device_put(sN.u, sh), v=jax.device_put(sN.v, sh),
-                     w=jax.device_put(sN.w, sh), p=jax.device_put(sN.p, sh),
-                     visct=jax.device_put(sN.visct, sh),
-                     s=jax.device_put(sN.s, sh))
-    for _ in range(2):
-        sN, _ = simN.step(sN, dt)
-
-    for name in ('u', 'v', 'w', 'p', 's'):
-        a = np.asarray(getattr(s1, name))
-        b = np.asarray(getattr(sN, name))
-        if name == 'p':
-            a, b = a - a.mean(), b - b.mean()
-        err = np.abs(a - b).max()
-        assert err < 1e-10, f"{name} sharded-scalar mismatch: {err}"
-
-
-_duct_bcs = dict(
-    cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'), ('D', 'D', 'D')),) * 2,
-    cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),
-    cbcsgs=(('P', 'N', 'N'), ('P', 'N', 'N')))
-
-
-def _compare_kernel_sharded(cfg, mesh_shape, nsteps=2, dt=1e-3, tol=1e-11,
-                            names=('u', 'v', 'w', 'p', 'visct'),
-                            assert_flags=None, check_vlo=()):
-    """Single-device kernel path vs the kernel-sharded path (interpret)."""
-    grid = make_grid_from_config(cfg)
-    u, v, w, p = _perturbed(cfg, grid)
-
-    sim1 = Simulation(cfg, grid)
-    assert sim1.use_pallas_mom, sim1.exec_path()
-    s1 = sim1.initial_state(u, v, w, p)
-    for _ in range(nsteps):
-        s1, _ = sim1.step(s1, dt)
-
-    mesh = make_mesh(mesh_shape)
-    simN = Simulation(cfg, grid, mesh=mesh)
-    assert simN.use_pallas_mom and simN._kernel_sharded, simN.exec_path()
-    if assert_flags:
-        assert_flags(simN)
-    sN = simN.initial_state(u, v, w, p)
-    sh = field_sharding(mesh)
-    sN = sN._replace(u=jax.device_put(sN.u, sh), v=jax.device_put(sN.v, sh),
-                     w=jax.device_put(sN.w, sh), p=jax.device_put(sN.p, sh),
-                     visct=jax.device_put(sN.visct, sh))
-    if cfg.scalar:
-        sN = sN._replace(s=jax.device_put(sN.s, sh))
-    for _ in range(nsteps):
-        sN, _ = simN.step(sN, dt)
-
-    for name in names:
-        a = np.asarray(getattr(s1, name))
-        b = np.asarray(getattr(sN, name))
-        if name == 'p':
-            a, b = a - a.mean(), b - b.mean()
-        err = np.abs(a - b).max()
-        assert err < tol, f"{name} kernel-sharded mismatch: {err}"
-    for m in check_vlo:
-        err = np.abs(np.asarray(s1.vlo[m]) - np.asarray(sN.vlo[m])).max()
-        assert err < tol, f"vlo[{m}] kernel-sharded mismatch: {err}"
-
-
-def test_ywalled_kernel_sharded_matches_single(monkeypatch):
-    """y-walled (duct-class) configs on the kernel-SHARDED path: the global
-    y-edge bundles ride replicated next to the ppermute halo strips and the
-    in-kernel wall ghost fixes fire only on the wall-owning shards (the
-    reference runs its fused kernels on any pencil, initmpi.f90:56-73 +
-    bound.f90:698-723)."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    for sgstype in ('none', 'smag'):
-        cfg = Config(ng=(128, 32, 16), l=(2 * np.pi, 2.0, 2.0), gtype=1,
-                     gr=0.5, visci=2000.0, inivel='duc', is_wallturb=False,
-                     dtype='float64', is_forced=(True, False, False),
-                     velf=(1.0, 0.0, 0.0), sgstype=sgstype, ptransform='mat',
-                     **_duct_bcs)
-        _compare_kernel_sharded(
-            cfg, (2, 1),
-            assert_flags=lambda s: s._ywalled or (_ for _ in ()).throw(
-                AssertionError('expected y-walled')),
-            check_vlo=(1, 2))
-
-
-def test_ywalled_kernel_2d_mesh_matches_single(monkeypatch):
-    """y-walled (duct-class) configs on a 2D (gy, gx) pencil mesh: the
-    in-kernel ye-bundle wall fixes compose with the xe ghost-column
-    protocol — the xe packs' wall-ghost rows are patched host-side from
-    the x neighbors' bundle rows and v's wall-face slot is rewritten
-    before packing (timeloop._xe_wall_rows/_ystag_rw_gx).  The reference
-    runs its kernels on any pencil (initmpi.f90:56-73)."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    for sgstype in ('none', 'smag'):
-        cfg = Config(ng=(256, 32, 16), l=(2 * np.pi, 2.0, 2.0), gtype=1,
-                     gr=0.5, visci=2000.0, inivel='duc', is_wallturb=False,
-                     dtype='float64', is_forced=(True, False, False),
-                     velf=(1.0, 0.0, 0.0), sgstype=sgstype, ptransform='mat',
-                     **_duct_bcs)
-
-        def flags(simN):
-            assert simN._ywalled and simN._gx_sharded, simN.exec_path()
-
-        _compare_kernel_sharded(cfg, (2, 2), assert_flags=flags,
-                                check_vlo=(1, 2))
-
-
-def test_ywalled_wmles_kernel_2d_mesh_matches_single(monkeypatch):
-    """Wall-modeled duct on a 2D (gy, gx) mesh: the wm-plane-valued
-    bundles ride the same host-side xe patching."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = Config(ng=(256, 32, 16), l=(2 * np.pi, 2.0, 2.0), gtype=1, gr=0.0,
-                 visci=20000.0, inivel='duc', is_wallturb=False,
-                 dtype='float64', is_forced=(True, False, False),
-                 velf=(1.0, 0.0, 0.0), sgstype='smag', ptransform='mat',
-                 lwm=((0, 1, 1), (0, 1, 1)), hwm=0.2,
-                 cbcvel=_duct_bcs['cbcvel'], cbcpre=_duct_bcs['cbcpre'],
-                 cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')))
-
-    def flags(simN):
-        assert simN._ywalled and simN._gx_sharded and simN.has_wm, \
-            simN.exec_path()
-
-    _compare_kernel_sharded(cfg, (2, 2), assert_flags=flags,
-                            check_vlo=(1, 2))
-
-
-def test_ywalled_wmles_kernel_sharded_matches_single(monkeypatch):
-    """Wall-modeled duct (y/z log-law walls, examples/turbulent_duct_wmles
-    class) under the 1D slab decomposition: the replicated y-edge bundles
-    carry the wall-model-updated Neumann planes."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    cfg = Config(ng=(128, 32, 16), l=(2 * np.pi, 2.0, 2.0), gtype=1, gr=0.0,
-                 visci=20000.0, inivel='duc', is_wallturb=False,
-                 dtype='float64', is_forced=(True, False, False),
-                 velf=(1.0, 0.0, 0.0), sgstype='smag', ptransform='mat',
-                 lwm=((0, 1, 1), (0, 1, 1)), hwm=0.2,
-                 cbcvel=_duct_bcs['cbcvel'], cbcpre=_duct_bcs['cbcpre'],
-                 cbcsgs=(('P', 'D', 'D'), ('P', 'D', 'D')))
-
-    def flags(simN):
-        assert simN._ywalled and simN.has_wm and simN._wm_fast, \
-            simN.exec_path()
-
-    _compare_kernel_sharded(cfg, (2, 1), assert_flags=flags,
-                            check_vlo=(1, 2))
-
-
-def test_ywalled_dsmag_kernel_sharded_matches_single(monkeypatch):
-    """Dynamic-Smagorinsky duct (BASELINE config #4) under the 1D slab
-    decomposition: both dsmag pipeline levels take the halo strips + the
-    replicated y-edge bundles with per-shard wall gating."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    cfg = Config(ng=(128, 32, 16), l=(2 * np.pi, 2.0, 2.0), gtype=1, gr=0.5,
-                 visci=2000.0, inivel='duc', is_wallturb=False,
-                 dtype='float64', is_forced=(True, False, False),
-                 velf=(1.0, 0.0, 0.0), sgstype='dsmag', dsmag_avg='duct',
-                 ptransform='mat', **_duct_bcs)
-
-    def flags(simN):
-        assert simN._ywalled and simN.use_pallas_dsmag, simN.exec_path()
-
-    _compare_kernel_sharded(cfg, (2, 1), assert_flags=flags)
-
-
-def test_xwalled_kernel_sharded_matches_single(monkeypatch):
-    """x-walled (inflow/outflow, developing-channel class) configs on the
-    kernel-SHARDED 1D slab path: the host-built x-ghost-column bundles
-    (ops/boundary.xedge_*) are y-sharded and ride the strips window mode
-    with their own cyclic-ppermute 8-row packs (exact: the x-walled mesh
-    gate requires periodic y).  Parity vs the single-chip kernel path,
-    incl. the retained u inflow-face plane (vlo[0]) and wlo
-    (bound.f90:401-445 under any pencil, initmpi.f90:56-73)."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    base = dict(ng=(128, 32, 16), l=(2.0, 1.5, 1.0), gtype=1, gr=0.0,
-                visci=5000.0, inivel='uni', is_wallturb=False,
-                dtype='float64',
-                cbcvel=((('D', 'N', 'N'), ('P', 'P', 'P'),
-                         ('D', 'D', 'D')),
-                        (('N', 'N', 'N'), ('P', 'P', 'P'),
-                         ('D', 'D', 'D'))),
-                bcvel=(((1.0, 0.0, 0.0), (0.0, 0.0, 0.0),
-                        (0.0, 0.0, 0.0)),) * 2,
-                cbcpre=(('N', 'P', 'N'), ('D', 'P', 'N')),
-                cbcsgs=(('N', 'P', 'D'), ('N', 'P', 'D')))
-    for extra in ({}, dict(impdiff=True, impdiff_1d=True)):
-        cfg = Config(**base, sgstype='none', ptransform='mat', **extra)
-
-        def flags(simN):
-            assert simN._xwalled and not simN._ywalled, simN.exec_path()
-
-        _compare_kernel_sharded(cfg, (2, 1), dt=5e-4, assert_flags=flags,
-                                check_vlo=(0, 2))
-
-
-def test_xwalled_kernel_2d_mesh_matches_single(monkeypatch):
-    """x-walled on a 2D (gy, gx) pencil mesh: the cyclic ppermute'd xe
-    packs carry valid interior neighbor columns on interior shards, and
-    the gx-edge shards' wall-ghost lanes are replaced from the host-built
-    recipe bundles (`_xe_wall_patch`, replicated over gx); u's wall-face
-    rewrite is already patched into the global kernel-input copy, which
-    lives on the last x shard."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = Config(ng=(256, 32, 16), l=(2.0, 1.5, 1.0), gtype=1, gr=0.0,
-                 visci=5000.0, inivel='uni', is_wallturb=False,
-                 dtype='float64', sgstype='none', ptransform='mat',
-                 cbcvel=((('D', 'N', 'N'), ('P', 'P', 'P'),
-                          ('D', 'D', 'D')),
-                         (('N', 'N', 'N'), ('P', 'P', 'P'),
-                          ('D', 'D', 'D'))),
-                 bcvel=(((1.0, 0.0, 0.0), (0.0, 0.0, 0.0),
-                         (0.0, 0.0, 0.0)),) * 2,
-                 cbcpre=(('N', 'P', 'N'), ('D', 'P', 'N')),
-                 cbcsgs=(('N', 'P', 'D'), ('N', 'P', 'D')))
-
-    def flags(simN):
-        assert simN._xwalled and simN._gx_sharded, simN.exec_path()
-
-    _compare_kernel_sharded(cfg, (2, 2), dt=5e-4, assert_flags=flags,
-                            check_vlo=(0, 2))
-
-
-def test_xywalled_kernel_sharded_matches_single(monkeypatch):
-    """x+y-walled (developing-duct / closed-box class) on the kernel-
-    SHARDED 1D slab path: the y-sharded xe column bundles (own strip
-    packs) compose with the replicated ye bundle carrying the xe corner
-    section — the in-kernel xe_ybase wall-row fixes fire only on the
-    ywf-gated wall shards."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    cfg = Config(ng=(128, 32, 16), l=(2.0, 1.0, 1.0), gtype=1, gr=0.0,
-                 visci=2000.0, inivel='uni', is_wallturb=False,
-                 dtype='float64', sgstype='none', ptransform='mat',
-                 cbcvel=((('D', 'N', 'N'), ('D', 'D', 'D'),
-                          ('D', 'D', 'D')),
-                         (('N', 'N', 'N'), ('D', 'D', 'D'),
-                          ('D', 'D', 'D'))),
-                 bcvel=(((1.0, 0.0, 0.0), (0.0, 0.0, 0.0),
-                         (0.0, 0.0, 0.0)),) * 2,
-                 cbcpre=(('N', 'N', 'N'), ('D', 'N', 'N')),
-                 cbcsgs=(('N', 'D', 'D'), ('N', 'D', 'D')))
-
-    def flags(simN):
-        assert simN._xwalled and simN._ywalled, simN.exec_path()
-
-    _compare_kernel_sharded(cfg, (2, 1), dt=5e-4, assert_flags=flags,
-                            check_vlo=(0, 1, 2))
-
-
-def test_xywalled_scalar_kernel_sharded_matches_single(monkeypatch):
-    """Passive scalar on an x+y-walled config on the kernel-SHARDED 1D
-    slab path (round 5): the scalar's host-built xe columns ride the
-    y-sharded xe bundle packs and its xye corner section rides the
-    replicated ye bundle (_xye_entries has_scal) — the bundle plumbing is
-    stack-count-generic."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    cfg = Config(ng=(128, 32, 16), l=(2.0, 1.0, 1.0), gtype=1, gr=0.0,
-                 visci=2000.0, inivel='uni', is_wallturb=False,
-                 dtype='float64', sgstype='none', ptransform='mat',
-                 scalar=True, pr=0.71, iniscal='uni', ssource=0.02,
-                 cbcscal=(('D', 'D', 'N'), ('N', 'N', 'N')),
-                 bcscal=((1.0, 0.5, 0.0), (0.0, 0.0, 0.0)),
-                 cbcvel=((('D', 'N', 'N'), ('D', 'D', 'D'),
-                          ('D', 'D', 'D')),
-                         (('N', 'N', 'N'), ('D', 'D', 'D'),
-                          ('D', 'D', 'D'))),
-                 bcvel=(((1.0, 0.0, 0.0), (0.0, 0.0, 0.0),
-                         (0.0, 0.0, 0.0)),) * 2,
-                 cbcpre=(('N', 'N', 'N'), ('D', 'N', 'N')),
-                 cbcsgs=(('N', 'D', 'D'), ('N', 'D', 'D')))
-
-    def flags(simN):
-        assert (simN._xwalled and simN._ywalled
-                and simN._scal_kernel_ok), simN.exec_path()
-
-    _compare_kernel_sharded(cfg, (2, 1), dt=5e-4, assert_flags=flags,
-                            names=('u', 'v', 'w', 'p', 's'),
-                            check_vlo=(0, 1, 2))
-
-
-def test_xywalled_kernel_2d_mesh_matches_single(monkeypatch):
-    """x+y-walled (developing-duct / closed-box class) on a 2D (gy, gx)
-    pencil mesh — the last wall-topology decomposition hole: the cyclic
-    xe packs get BOTH host-side patches composed (_xe_packs_ywalled_gx):
-    wall-ghost ROWS from the x neighbors' ye bundle rows, gx-edge wall
-    LANES from the host-built xedge recipe bundles, and those lanes'
-    corner entries from the ye bundles' xe corner section.  The
-    reference runs any BC set under any pencil (initmpi.f90:56-73,
-    bound.f90:401-445)."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = Config(ng=(256, 32, 16), l=(2.0, 1.0, 1.0), gtype=1, gr=0.0,
-                 visci=2000.0, inivel='uni', is_wallturb=False,
-                 dtype='float64', sgstype='none', ptransform='mat',
-                 cbcvel=((('D', 'N', 'N'), ('D', 'D', 'D'),
-                          ('D', 'D', 'D')),
-                         (('N', 'N', 'N'), ('D', 'D', 'D'),
-                          ('D', 'D', 'D'))),
-                 bcvel=(((1.0, 0.0, 0.0), (0.0, 0.0, 0.0),
-                         (0.0, 0.0, 0.0)),) * 2,
-                 cbcpre=(('N', 'N', 'N'), ('D', 'N', 'N')),
-                 cbcsgs=(('N', 'D', 'D'), ('N', 'D', 'D')))
-
-    def flags(simN):
-        assert (simN._xwalled and simN._ywalled
-                and simN._gx_sharded), simN.exec_path()
-
-    _compare_kernel_sharded(cfg, (2, 2), dt=5e-4, assert_flags=flags,
-                            check_vlo=(0, 1, 2))
-
-
-@pytest.mark.parametrize('avg', ['duct', 'cavity'])
-def test_ywalled_dsmag_kernel_2d_mesh_matches_single(monkeypatch, avg):
-    """y-walled dynamic Smagorinsky on a 2D (gy, gx) pencil mesh: the
-    x-extended one-pass kernel takes the ye bundles x-extended with the
-    same cyclic ppermute (their rows are periodic in x) + per-shard ywf
-    wall gating; 'duct' averaging (over x only, sgs.f90:540-614) psums
-    across 'gx' and applies the per-(z,y)-row ratio in-shard.  This was
-    the last dsmag decomposition hole (sgs.f90:153-380 runs under any
-    pencil, initmpi.f90:56-73)."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = Config(ng=(256, 32, 16), l=(2 * np.pi, 2.0, 2.0), gtype=1, gr=0.5,
-                 visci=2000.0, inivel='duc', is_wallturb=False,
-                 dtype='float64', is_forced=(True, False, False),
-                 velf=(1.0, 0.0, 0.0), sgstype='dsmag', dsmag_avg=avg,
-                 ptransform='mat', **_duct_bcs)
-
-    def flags(simN):
-        assert simN._ywalled and simN._gx_sharded, simN.exec_path()
-        assert simN._dsmag_onepass and simN._dsmag_xext, simN.exec_path()
-
-    _compare_kernel_sharded(cfg, (2, 2), assert_flags=flags)
-
-def test_scalar_ywalled_kernel_sharded_matches_single(monkeypatch):
-    """Passive scalar on a y-walled duct-class config under the 1D slab
-    decomposition: the scalar window rides the ppermute halo strips AND its
-    wall ghost rows ride the replicated ye bundle (fixes gated per shard by
-    ywf) — must reproduce the single-device kernel path."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    cfg = Config(ng=(128, 32, 16), l=(2 * np.pi, 2.0, 2.0), gtype=1,
-                 gr=0.5, visci=2000.0, inivel='duc', is_wallturb=False,
-                 dtype='float64', is_forced=(True, False, False),
-                 velf=(1.0, 0.0, 0.0), sgstype='smag', ptransform='mat',
-                 scalar=True, pr=0.71, iniscal='uni', ssource=0.02,
-                 cbcscal=(('P', 'D', 'N'), ('P', 'D', 'N')),
-                 bcscal=((0.0, 1.0, 0.0), (0.0, 0.5, 0.0)),
-                 **_duct_bcs)
-    _compare_kernel_sharded(
-        cfg, (2, 1), tol=1e-10, names=('u', 'v', 'w', 'p', 's', 'visct'),
-        assert_flags=lambda s: (s._ywalled and s._scal_kernel_ok)
-        or (_ for _ in ()).throw(AssertionError('expected y-walled scalar')),
-        check_vlo=(1, 2))
-
-def test_scalar_kernel_2d_mesh_matches_single(monkeypatch):
-    """Passive scalar on a 2D (gy, gx) pencil mesh, periodic-y channel
-    class: the scalar's window rides the xe ghost-column protocol (lanes
-    2m/2m+1 next to u..p) like every other field."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = Config(ng=(256, 32, 16), l=(2 * np.pi, np.pi, 2.0), gtype=1, gr=0.9,
-                 visci=2000.0, inivel='log', is_wallturb=True, dtype='float64',
-                 is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='smag', ptransform='mat',
-                 scalar=True, pr=0.71, iniscal='zer', ssource=0.05,
-                 cbcscal=(('P', 'P', 'N'), ('P', 'P', 'N')),
-                 **_channel_bcs)
-
-    def flags(simN):
-        assert simN._gx_sharded and simN._scal_kernel_ok, simN.exec_path()
-
-    _compare_kernel_sharded(cfg, (2, 2), tol=1e-10,
-                            names=('u', 'v', 'w', 'p', 's'),
-                            assert_flags=flags)
-
-
-def test_scalar_ywalled_kernel_2d_mesh_matches_single(monkeypatch):
-    """Passive scalar on a y-walled duct-class config on a 2D (gy, gx)
-    mesh: the scalar's xe pack wall-ghost rows are patched from the x
-    neighbors' bundle rows exactly like the velocities' (field-generic
-    _xe_wall_rows), composing the ye and xe protocols."""
-    monkeypatch.setenv('CALES_PALLAS_INTERPRET', '1')
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 virtual devices")
-    cfg = Config(ng=(256, 32, 16), l=(2 * np.pi, 2.0, 2.0), gtype=1,
-                 gr=0.5, visci=2000.0, inivel='duc', is_wallturb=False,
-                 dtype='float64', is_forced=(True, False, False),
-                 velf=(1.0, 0.0, 0.0), sgstype='smag', ptransform='mat',
-                 scalar=True, pr=0.71, iniscal='uni', ssource=0.02,
-                 cbcscal=(('P', 'D', 'N'), ('P', 'D', 'N')),
-                 bcscal=((0.0, 1.0, 0.0), (0.0, 0.5, 0.0)),
-                 **_duct_bcs)
-
-    def flags(simN):
-        assert (simN._ywalled and simN._gx_sharded
-                and simN._scal_kernel_ok), simN.exec_path()
-
-    _compare_kernel_sharded(cfg, (2, 2), tol=1e-10,
-                            names=('u', 'v', 'w', 'p', 's', 'visct'),
-                            assert_flags=flags, check_vlo=(1, 2))

@@ -87,7 +87,7 @@ def test_fft_complex_path():
 
 @pytest.mark.parametrize("n", [8, 13, 16])
 def test_pp_mat_diagonalization_and_roundtrip(n):
-    """The real half-complex DFT operator matrix (PP on the MXU) must
+    """The real half-complex DFT operator matrix (PP as a dense matmul) must
     diagonalize the circulant second-difference operator and invert exactly."""
     t = tr.make_transform('PP', 'c', n, pp_mat=True)
     assert t.kind == 'mat' and t.nsolve == n

@@ -1,33 +1,29 @@
 #!/usr/bin/env python3
-"""Estimate the per-chip HBM footprint of a run before launching it.
+"""Estimate the per-device memory footprint of a run before launching it.
 
 Counterpart of /root/reference/utils/other_utilities/
 estimate_device_memory_footprint/ (which sums the reference's allocation
 list).  This version models OUR runtime: the jitted step donates the state
-(u, v, w, p, visct [, s] + 3 RK rhs carries + vlo wall planes), the Pallas
-kernel streams run in place (input_output_aliases), and the Poisson solve
-adds transform temporaries; on multi-chip meshes the all-to-all stages add
-one field-sized staging buffer per direction.  Cross-checked against XLA's
-memory analysis at 512x256x256 f32 single chip: args 1.38 GiB + temps
-0.95 GiB - 1.38 GiB aliased ~= 2.3 GiB live (BASELINE.md round 2).
+(u, v, w, p, visct [, s] + 3 RK rhs carries + vlo wall planes) and the
+Poisson solve adds transform temporaries; on multi-device meshes the
+all-to-all stages add one field-sized staging buffer per direction.  Check
+the estimate against the compiled step's memory_analysis(), which
+chip_smoke.py prints for the 512x256x256 LES.
 
 Usage: python utils/estimate_memory_footprint.py --ng 1024x512x512 \
-    --mesh 8 [--dtype float32] [--scalar] [--impdiff]
+    --mesh 4 [--dtype float32] [--scalar] [--impdiff]
 """
 import argparse
 
 
 def estimate_footprint_bytes(ng, nchips=1, itemsize=4, scalar=False,
                              impdiff=False, z_periodic=False):
-    """Bytes of live HBM per chip for one production step."""
+    """Bytes of live device memory per device for one production step."""
     n = ng[0] * ng[1] * ng[2] / nchips
     nfields = 5 + (1 if scalar else 0)          # u v w p visct (+s)
     ncarry = 3 + (1 if scalar else 0)           # rhs_old RK carries
     state = (nfields + ncarry) * n * itemsize
-    # solver + XLA fusion temporaries: calibrated to the measured XLA
-    # memory analysis at 512x256x256 f32 (temps 0.95 GiB ~= 7 fields on
-    # top of the 10-field args block); the aliased Pallas passes reuse
-    # the RHS buffer in place
+    # solver + XLA fusion temporaries (~8 fields)
     solve = 8 * n * itemsize
     if z_periodic:
         solve += 1 * n * itemsize               # rank-1 two-RHS Thomas
@@ -41,14 +37,15 @@ def estimate_footprint_bytes(ng, nchips=1, itemsize=4, scalar=False,
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--ng', default='512x256x256')
-    ap.add_argument('--mesh', type=int, default=1, help='number of chips')
+    ap.add_argument('--mesh', type=int, default=1, help='number of devices')
     ap.add_argument('--dtype', default='float32',
                     choices=['float32', 'float64'])
     ap.add_argument('--scalar', action='store_true')
     ap.add_argument('--impdiff', action='store_true')
     ap.add_argument('--z-periodic', action='store_true')
-    ap.add_argument('--hbm-gib', type=float, default=16.0,
-                    help='per-chip HBM (v5e: 16)')
+    ap.add_argument('--mem-gib', type=float, default=80.0,
+                    help='device memory per device in GiB (default: an '
+                         '80 GB H100)')
     args = ap.parse_args()
 
     ng = tuple(int(v) for v in args.ng.split('x'))
@@ -57,12 +54,12 @@ def main():
                                  args.impdiff, args.z_periodic)
     gib = b / 1024.0 ** 3
     cells = ng[0] * ng[1] * ng[2] / args.mesh
-    print(f'{args.ng} on {args.mesh} chip(s), {args.dtype}: '
-          f'~{gib:.2f} GiB/chip live ({b / cells:.1f} B/cell), '
-          f'{gib / args.hbm_gib * 100:.0f}% of {args.hbm_gib:.0f} GiB HBM')
-    if gib > 0.85 * args.hbm_gib:
-        print('WARNING: above ~85% of HBM — expect allocation failures; '
-              'shard over more chips or drop to float32')
+    print(f'{args.ng} on {args.mesh} device(s), {args.dtype}: '
+          f'~{gib:.2f} GiB/device live ({b / cells:.1f} B/cell), '
+          f'{gib / args.mem_gib * 100:.0f}% of {args.mem_gib:.0f} GiB')
+    if gib > 0.85 * args.mem_gib:
+        print('WARNING: above ~85% of device memory — expect allocation '
+              'failures; shard over more devices or drop to float32')
 
 
 if __name__ == '__main__':

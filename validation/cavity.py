@@ -12,7 +12,8 @@ Reference counterpart: /root/reference/examples/dns/lid_driven_cavity/
 (the fully-enclosed 3D case, same Re and lid speed).
 
 Usage: PYTHONPATH=. python validation/cavity.py [--n 96] [--tend 60]
-CPU f64 by default (~12 min at 96^2); pass --f32 to run on the TPU path.
+CPU f64 by default (~12 min at 96^2); pass --f32 to run float32 on the
+default (GPU) backend.
 """
 import argparse
 import sys
@@ -48,7 +49,7 @@ def main():
     ap.add_argument('--n', type=int, default=96)
     ap.add_argument('--tend', type=float, default=60.0)
     ap.add_argument('--f32', action='store_true',
-                    help='float32 on the default (TPU) backend')
+                    help='float32 on the default (GPU) backend')
     args = ap.parse_args()
     if not args.f32:
         jax.config.update('jax_platforms', 'cpu')

@@ -63,10 +63,8 @@ def main():
     if args.cpu:
         jax.config.update('jax_platforms', 'cpu')
         jax.config.update('jax_enable_x64', True)
-    if jax.default_backend() == 'tpu':
-        # CPU AOT cache entries are machine-feature-pinned (see bench.py)
-        jax.config.update('jax_compilation_cache_dir',
-                          os.path.expanduser('~/.jax_cache'))
+    from cales_tpu.runtime import enable_compile_cache
+    enable_compile_cache()
     from cales_tpu.config import Config
     from cales_tpu.grid import make_grid_from_config
     from cales_tpu.initflow import initflow
@@ -78,7 +76,7 @@ def main():
                  inivel='poi', is_wallturb=True,
                  dtype='float64' if args.cpu else 'float32',
                  is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='dsmag', dsmag_avg='channel', ptransform='mat',
+                 sgstype='dsmag', dsmag_avg='channel',
                  impdiff=not args.explicit, impdiff_1d=not args.explicit,
                  cbcvel=((('P', 'P', 'P'), ('P', 'P', 'P'),
                           ('D', 'D', 'D')),) * 2,

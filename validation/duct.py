@@ -4,7 +4,7 @@ examples/dns/_manuscript_turbulent_duct).
 
 Runs the Gavrilakis (1992) square duct — Re_b = 4410 on bulk velocity and
 duct width — at reduced resolution with the dynamic-Smagorinsky model
-(dsmag_avg='duct') on the Pallas kernel path, and reports the mean friction
+(dsmag_avg='duct'), and reports the mean friction
 from the streamwise force balance: with bulk forcing on a square cross
 section (side W, area W^2, perimeter 4W),
 
@@ -42,10 +42,8 @@ def main():
     if args.cpu:
         jax.config.update('jax_platforms', 'cpu')
         jax.config.update('jax_enable_x64', True)
-    if jax.default_backend() == 'tpu':
-        # CPU AOT cache entries are machine-feature-pinned (see bench.py)
-        jax.config.update('jax_compilation_cache_dir',
-                          os.path.expanduser('~/.jax_cache'))
+    from cales_tpu.runtime import enable_compile_cache
+    enable_compile_cache()
     from cales_tpu.config import Config
     from cales_tpu.grid import make_grid_from_config
     from cales_tpu.initflow import initflow
@@ -57,7 +55,7 @@ def main():
                  inivel='poi', is_wallturb=True,
                  dtype='float64' if args.cpu else 'float32',
                  is_forced=(True, False, False), velf=(1.0, 0.0, 0.0),
-                 sgstype='dsmag', dsmag_avg='duct', ptransform='mat',
+                 sgstype='dsmag', dsmag_avg='duct',
                  cbcvel=((('P', 'P', 'P'), ('D', 'D', 'D'),
                           ('D', 'D', 'D')),) * 2,
                  cbcpre=(('P', 'N', 'N'), ('P', 'N', 'N')),

@@ -33,10 +33,8 @@ def main():
     if args.cpu:
         jax.config.update('jax_platforms', 'cpu')
         jax.config.update('jax_enable_x64', True)
-    if jax.default_backend() == 'tpu':
-        # CPU AOT cache entries are machine-feature-pinned (see bench.py)
-        jax.config.update('jax_compilation_cache_dir',
-                          os.path.expanduser('~/.jax_cache'))
+    from cales_tpu.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     from cales_tpu.config import Config
     from cales_tpu.grid import make_grid_from_config
